@@ -1,0 +1,112 @@
+"""The port stands without jax and never hides the device: a whole CLI
+`genotype` run leaves jax out of sys.modules, no module of the package
+imports jax, the CLI refuses to run without a GPU unless told `--device
+cpu`, and a non-CPU tensor whose kernel cannot be built raises."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "graphtyper_tpu_torch"
+
+# modules of the JAX package that import jax at module level
+JAX_MODULES = (
+    "graphtyper_tpu.ops.sw_rot", "graphtyper_tpu.ops.sw_pallas", "graphtyper_tpu.ops.seed_probe",
+    "graphtyper_tpu.ops.device_align", "graphtyper_tpu.ops.hamming", "graphtyper_tpu.ops.likelihood",
+    "graphtyper_tpu.ops.genotype_step", "graphtyper_tpu.utils.jax_cache", "graphtyper_tpu.parallel",
+)
+
+
+def test_cli_genotype_run_never_imports_jax(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.path.insert(0, {str(REPO)!r})
+        from graphtyper_tpu.utils.simulate import SimConfig, simulate_cohort
+        from graphtyper_tpu_torch import cli, counters
+        cfg = SimConfig(region_length=8000, coverage=12, n_samples=2, error_rate=0.005,
+                        out_format="bam", seed=3)
+        sim = simulate_cohort({str(tmp_path / "sim")!r}, cfg)
+        argv = ["genotype", sim.fasta, "--region", f"{{cfg.chrom}}:1-{{cfg.region_length}}",
+                "-O", {str(tmp_path / "out")!r}, "--device", "cpu", "--threads", "1"]
+        for s in sim.sams:
+            argv += ["--sam", s]
+        rc = cli.main(argv)
+        assert rc == 0, rc
+        assert counters.totals().get("scoring_rows", 0) > 0
+        print("JAX_LOADED", "jax" in sys.modules,
+              sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "JAX_LOADED False []" in proc.stdout, proc.stdout[-2000:]
+    assert list((tmp_path / "out").rglob("*.vcf.gz"))
+
+
+def test_package_sources_import_no_jax():
+    pattern = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b|"
+        + r"(from|import)\s+(" + "|".join(re.escape(m) for m in JAX_MODULES) + r")\b)",
+        re.M,
+    )
+    offenders = []
+    for path in PKG.rglob("*.py"):
+        for m in pattern.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(REPO)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+    assert len(list(PKG.rglob("*.py"))) >= 15
+
+
+def test_cli_default_device_requires_cuda(monkeypatch, tmp_path):
+    from graphtyper_tpu.config import DEFAULT_OPTIONS, set_options
+    from graphtyper_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            cli.main(["genotype", "ref.fa", "--sam", "a.bam", "-O", str(tmp_path)])
+    finally:
+        set_options(DEFAULT_OPTIONS)
+    assert not list(tmp_path.iterdir())  # failed before doing any work
+
+
+def test_resolve_device():
+    from graphtyper_tpu_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_failed_kernel_build_raises(monkeypatch, tmp_path):
+    """A tensor off the CPU takes the kernel route; with no nvcc the build
+    fails and the call raises instead of running the plain version. This
+    host has no CUDA tensors, so meta tensors stand in for them."""
+    from graphtyper_tpu_torch import counters, kernels
+    from graphtyper_tpu_torch.ops.sw_rot import sw_align_rot
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path / "empty_bin"))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernel_build")
+    monkeypatch.setattr(kernels, "_LIB", None)
+    q = torch.zeros((4, 8), dtype=torch.uint8, device="meta")
+    d = torch.zeros((4, 16), dtype=torch.uint8, device="meta")
+    ln = torch.zeros(4, dtype=torch.int32, device="meta")
+    plain_before = counters.COUNTS["sw_plain"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        sw_align_rot(q, ln, d, ln)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.load()
+    assert counters.COUNTS["sw_plain"] == plain_before
+    assert not (tmp_path / "kernel_build").exists()
