@@ -3,10 +3,20 @@
 Phases, one line each, none of them caught:
   1. card     nvidia-smi name and power limit, torch's CUDA version
   2. kernels  build the CUDA kernels from graphtyper_tpu_torch/csrc
+     engine   build the C++ engine from native/*.cpp (io/native.py)
   3. kernel   sw_align_rot (CUDA kernel) against sw_align_plain on the card,
               exactly, at 4096 pairs x 192 x 512, at the main path's batch
-              of 6 pairs, and on the tie, length-edge and empty batches;
-              CUDA-event times of both
+              of 6 pairs, and on the tie, length-edge, empty and E-scan tie
+              batches; CUDA-event times of both
+     row      sw_align_pallas (the row-scan CUDA kernel) against
+              sw_align_plain on the card, exactly, at 4096 x 192 x 512, at
+              the bench tool's 4096 x 152 x 256, at 1, 6, 40 and 4096 pairs
+              x 151 x 506, and on the tie, length-edge, empty and E-scan tie
+              batches (strip widths 1 to 16); CUDA-event times of both
+              kernels and the plain version
+     bench    python -m graphtyper_tpu_torch.tools.bench_sw --row, then
+              --rot, each in a subprocess: parity with the C++ engine's
+              host DP and Gcell/s; the --row run is the row kernel's path
   4. slice    `genotype` through the port's CLI on the card, then the same
               CLI with --device cpu (the plain PyTorch versions) on the same
               input in a subprocess: equal md5 of the uncompressed VCFs.
@@ -16,7 +26,8 @@ Phases, one line each, none of them caught:
               the SW results are discarded, so a wrong kernel result shows
 The tests hold the port's CPU path to the JAX package byte for byte
 (tests/test_torch_slice.py, tests/test_torch_sw.py).
-Then one JSON line per kernel, and the last line
+Then one JSON line of the kernels (launches on their paths, error, times,
+bound), and the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a GPU, and outside a checkout of the repository.
 """
@@ -45,6 +56,24 @@ SLICES = (  # (name, simulated cohort)
 THREADS = 4
 KERNEL_SHAPE = (4096, 192, 512)  # pairs, query width (151 bp reads padded), window width
 SMALL_BATCH = 6  # pairs in a typical realignment batch of the main path
+PATH_SHAPE = (151, 506)  # a 151 bp read against a realignment window of the main path
+PATH_BATCHES = (1, 6, 40, 4096)  # the main path sends 1-40 pairs a call
+# int32 operations of one DP cell of the recurrence, counted from
+# graphtyper_tpu/ops/sw_pallas.py:119-157 for a cell (i, j) with i <= qlen
+# and j < dlen, the only cells whose values reach the output. Terms that
+# depend on the row alone or the column alone (qb, d >= 4, d_valid,
+# (j + 1) * ge, go + j * ge) are computed once, not per cell, and the masks
+# row_active and d_valid are all true on these cells, so their selects
+# (:122, :147-149), the or of :121 (qb >= 4 holds for a whole row) and the
+# ands of :152 and :154 are choices made per row.
+# Per cell: :120 compare, select (2); :121 select (1); :128 (1);
+# :129-130 (2); :131 (1); :133 sub, sub, max (3); :134 (1); :135-136 (2);
+# :138 add (1); :139 one step of a running max with its argument: compare,
+# two selects (3); :142 sub (1); :143 (1); :144-145 (2); :153 sub (1);
+# :154 compare (1); :155-157 (3)
+SW_OPS_PER_CELL = 26
+INT32_LANES_PER_SM = 64
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
 def _md5(paths):
@@ -56,10 +85,11 @@ def _md5(paths):
     return h.hexdigest()
 
 
-def _kernel_batches(np):
-    """(name, (Q, qlens, D, dlens)) batches; inputs made with numpy from seeds."""
-    rng = np.random.default_rng(2024)
-    B, M, N = KERNEL_SHAPE
+def _planted(np, seed, B, M, N):
+    """151 bp reads (some trimmed) padded to M, against windows of 494-N
+    valid bases with N codes; three in four reads are planted hits with
+    substitutions and an indel-sized shift."""
+    rng = np.random.default_rng(seed)
     qlens = np.full(B, 151, np.int32)
     qlens[::16] = rng.integers(100, 151, len(qlens[::16]))  # some trimmed reads
     dlens = rng.integers(494, N + 1, B).astype(np.int32)
@@ -77,7 +107,42 @@ def _kernel_batches(np):
             Q[b, rng.integers(0, qlens[b], 3)] = rng.integers(0, 5, 3)
         else:
             Q[b, : qlens[b]] = rng.integers(0, 4, qlens[b])
-    batches = [("main", (Q, qlens, D, dlens))]
+    return Q, qlens, D, dlens
+
+
+def _e_ties(np, seed, B, M, N):
+    """tests/test_torch_sw.py e_tie_batch: the best alignment deletes from
+    one of two columns with equal E-scan prefix values and different
+    starts (a homopolymer, then an N code), so the scan's tie rule decides
+    the begin, in the row kernel's in-strip pass, shuffle scan and fix-up."""
+    rng = np.random.default_rng(seed)
+    C = 1
+    while 32 * C < N:
+        C *= 2
+    Q = np.full((B, M), 5, np.uint8)
+    D = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    for b in range(B):
+        a = b % 4
+        L = int(rng.integers(M // 2 - 1, M // 2 + 2))
+        tail = M - L
+        d = int(rng.integers(1, max(2, min(tail - 2, L - 2, 3 * C + 2))))
+        span = L + 1 + d + tail
+        s = int(rng.integers(1, N - span + 1))
+        s += ((0 if b % 2 == 0 else C // 2) - (s + L)) % C
+        if s + span > N:
+            s -= C
+        D[b, s - 1] = (a + 1) % 4
+        D[b, s : s + L] = a
+        D[b, s + L] = 4
+        D[b, s + L + 1] = (a + 2) % 4
+        Q[b, :L] = a
+        Q[b, L:] = D[b, s + L + 1 + d : s + span]
+    return Q, np.full(B, M, np.int32), D, np.full(B, N, np.int32)
+
+
+def _kernel_batches(np):
+    """(name, (Q, qlens, D, dlens)) batches; inputs made with numpy from seeds."""
+    batches = [("main", _planted(np, 2024, *KERNEL_SHAPE))]
 
     # tests/ops/test_sw_rot.py: adversarial ties and gaps
     rng = np.random.default_rng(99)
@@ -109,20 +174,41 @@ def _kernel_batches(np):
     D4 = rng.integers(0, 4, (6, 30)).astype(np.uint8)
     batches.append(("empty", (Q4, np.array([0, 12, 0, 5, 12, 1], np.int32), D4,
                               np.array([30, 0, 0, 0, 30, 1], np.int32))))
+
+    # E-scan ties at the row kernel's strip widths 1, 4, 8 and 16
+    for M, N in ((12, 32), (24, 128), (40, 256), (151, 506), (192, 512)):
+        batches.append((f"e_ties_{M}x{N}", _e_ties(np, N, 64, M, N)))
     return batches
 
 
-def _time_ms(torch, fn, reps):
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def _time_ms(fn, reps=None):
+    """CUDA-event ms of one call (bench_sw.time_ms: warm-up, then `reps`
+    calls, by default as many as fill about 200 ms)."""
+    from graphtyper_tpu_torch.tools.bench_sw import time_ms
+
+    return time_ms(fn, reps)[0]
+
+
+def _to_dev(torch, np, arrays, dev):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _max_diff(np, got, want):
+    return max(int(np.abs(g.cpu().numpy().astype(np.int64) - w.cpu().numpy().astype(np.int64)).max(
+        initial=0)) for g, w in zip(got, want))
+
+
+def sw_bound(np, qlens, dlens, N, B, M, sm_clock_mhz, n_sm):
+    """(ms, bound_by): the least time the card could take for one SW call on
+    these inputs, the larger of SW_OPS_PER_CELL int32 operations per cell of
+    the active rows and valid columns (sum of qlen x min(dlen, N)) on
+    n_sm x 64 int32 lanes at the SM's maximum clock, and the bytes moved
+    once (codes and lengths in, three int32 out per pair) at the HBM rate."""
+    cols = np.minimum(np.asarray(dlens, np.int64), N)
+    ops = SW_OPS_PER_CELL * int((np.asarray(qlens, np.int64) * cols).sum())
+    ops_ms = ops / (n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6) * 1e3
+    bytes_ms = (B * (M + N) + B * 8 + B * 12) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def kernel_phase(torch, np, dev):
@@ -145,17 +231,75 @@ def kernel_phase(torch, np, dev):
         raise AssertionError(f"sw_align_rot disagrees with sw_align_plain: max |diff| {max_err}")
     main_t, few = tensors["main"], tensors["few"]
     cells = int(ql.astype(np.int64).sum()) * D.shape[1]
-    ms = _time_ms(torch, lambda: sw_align_rot(*main_t), 5)
-    plain_ms = _time_ms(torch, lambda: sw_align_plain(*main_t), 3)
-    few_ms = _time_ms(torch, lambda: sw_align_rot(*few), 5)
-    few_plain_ms = _time_ms(torch, lambda: sw_align_plain(*few), 3)
+    ms = _time_ms(lambda: sw_align_rot(*main_t))
+    plain_ms = _time_ms(lambda: sw_align_plain(*main_t), 3)
+    few_ms = _time_ms(lambda: sw_align_rot(*few))
+    few_plain_ms = _time_ms(lambda: sw_align_plain(*few), 3)
     B, M, N = KERNEL_SHAPE
     print(f"kernel: sw_align_rot == sw_align_plain on {B}x{M}x{N}, {SMALL_BATCH} pairs and"
-          " ties/edges/empty;"
+          " ties/edges/empty/E-scan ties;"
           f" kernel {ms:.3f} ms ({cells / ms / 1e6:.3f} Gcell/s), plain {plain_ms:.3f} ms"
           f" ({cells / plain_ms / 1e6:.3f} Gcell/s), cells = sum(qlen) x N = {cells};"
           f" {SMALL_BATCH} pairs: kernel {few_ms:.3f} ms, plain {few_plain_ms:.3f} ms", flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+
+
+def row_phase(torch, np, dev, rot_err, bound):
+    """sw_align_pallas (csrc/sw_row.cu) against sw_align_plain, exactly, on
+    every batch; sw_align_rot is held to the plain version on the new
+    shapes too. Times of both kernels and the plain version per shape."""
+    from graphtyper_tpu_torch.ops.sw_pallas import sw_align_pallas, sw_align_plain
+    from graphtyper_tpu_torch.ops.sw_rot import sw_align_rot
+    from graphtyper_tpu_torch.tools.bench_sw import make_batch
+
+    M, N = PATH_SHAPE
+    wide = _planted(np, 2025, PATH_BATCHES[-1], M, N)
+    batches = _kernel_batches(np)
+    batches.insert(1, ("bench_sw", make_batch()))
+    for B in PATH_BATCHES:
+        batches.insert(2, (f"{B}x{M}x{N}", tuple(a[:B] for a in wide)))
+    row_err = 0
+    times = {}
+    for name, arrays in batches:
+        t = _to_dev(torch, np, arrays, dev)
+        want = sw_align_plain(*t)
+        row_err = max(row_err, _max_diff(np, sw_align_pallas(*t), want))
+        rot_err = max(rot_err, _max_diff(np, sw_align_rot(*t), want))
+        if row_err or rot_err:
+            raise AssertionError(f"{name}: a SW kernel disagrees with sw_align_plain: max |diff| "
+                                 f"sw_row {row_err}, sw_rot {rot_err}")
+        if name in ("main", "bench_sw") or name.endswith(f"x{M}x{N}"):
+            times[name] = dict(
+                row_ms=_time_ms(lambda: sw_align_pallas(*t)),
+                rot_ms=_time_ms(lambda: sw_align_rot(*t)),
+                plain_ms=_time_ms(lambda: sw_align_plain(*t), 3),
+                cells=int(arrays[1].astype(np.int64).sum()) * arrays[2].shape[1],
+                bound=bound(arrays),
+            )
+    print("row: sw_align_pallas == sw_align_plain (and sw_align_rot == sw_align_plain) on "
+          + ", ".join(n for n, _ in batches) + "; CUDA-event ms per call (Gcell/s):", flush=True)
+    for name, tm in times.items():
+        print(f"row:   {name}: sw_row {tm['row_ms']:.4f} ({tm['cells'] / tm['row_ms'] / 1e6:.3f}),"
+              f" sw_rot {tm['rot_ms']:.4f} ({tm['cells'] / tm['rot_ms'] / 1e6:.3f}),"
+              f" plain {tm['plain_ms']:.3f} ({tm['cells'] / tm['plain_ms'] / 1e6:.3f});"
+              f" bound {tm['bound'][0]:.4f} ({tm['bound'][1]})", flush=True)
+    return dict(max_abs_err=row_err, rot_err=rot_err, times=times)
+
+
+def bench_phase(kernel_flag):
+    """python -m graphtyper_tpu_torch.tools.bench_sw <flag> in a subprocess;
+    its last line (parity, time, launch counts) as a dict."""
+    cmd = [sys.executable, "-m", "graphtyper_tpu_torch.tools.bench_sw", kernel_flag]
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1])
+    if not got.get("parity") or got.get("device") != "cuda":
+        raise AssertionError(f"{' '.join(cmd[1:])}: {lines[-1]}")
+    print(f"bench {kernel_flag}: " + " | ".join(lines[:-1]) + f"; launches {got['launches']}",
+          flush=True)
+    return got
 
 
 def _genotype_argv(sim, cfg, out, device):
@@ -228,33 +372,59 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"card: torch {torch.__version__}, torch.version.cuda {torch.version.cuda}", flush=True)
+    def smi(query):
+        return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+    print(smi("name,power.limit"))
+    sm_clock = float(smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"card: torch {torch.__version__}, torch.version.cuda {torch.version.cuda},"
+          f" {n_sm} SMs, max SM clock {sm_clock:.0f} MHz", flush=True)
 
     from graphtyper_tpu_torch import kernels
+    from graphtyper_tpu_torch.io.native import engine_path
 
     t0 = time.perf_counter()
     lib = kernels.library_path()
     kernels.load()
     built = time.perf_counter() - t0
     print(f"kernels: built {os.path.relpath(lib, HERE)} in {built:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    engine = engine_path()
+    print(f"engine: built {os.path.relpath(engine, HERE)} in {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     dev = torch.device("cuda")
-    timing = kernel_phase(torch, np, dev)
-    launches = 0
+    def bound(arrays):
+        Q, ql, D, dl = arrays
+        return sw_bound(np, ql, dl, D.shape[1], len(ql), Q.shape[1], sm_clock, n_sm)
+
+    rot = kernel_phase(torch, np, dev)
+    row = row_phase(torch, np, dev, rot["max_abs_err"], bound)
+    row_launches = bench_phase("--row")["launches"].get("sw_row", 0)
+    bench_phase("--rot")
+    rot_launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         for name, sim_kw in SLICES:
-            launches += slice_phase(work, name, sim_kw)["sw_rot"]
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+            rot_launches += slice_phase(work, name, sim_kw)["sw_rot"]
+    if row_launches <= 0:
+        raise AssertionError("tools.bench_sw --row did not launch the row kernel")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "graphtyper_tpu"))
+    if loaded:
+        raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
 
-    print(json.dumps({"kernels": [{
-        "name": "sw_align_rot", "route": "cuda", "source": "graphtyper_tpu_torch/csrc/sw_rot.cu",
-        "replaces": "graphtyper_tpu/ops/sw_rot.py:282", "launches": launches,
-        "max_abs_err": timing["max_abs_err"], "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-    }]}))
+    main = row["times"]["main"]
+    bound_ms, bound_by = main["bound"]
+    common = dict(route="cuda", bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(json.dumps({"kernels": [
+        dict(name="sw_rot", source="graphtyper_tpu_torch/csrc/sw_rot.cu",
+             replaces="graphtyper_tpu/ops/sw_rot.py:282", launches=rot_launches,
+             max_abs_err=row["rot_err"], ms=rot["ms"], plain_ms=rot["plain_ms"], **common),
+        dict(name="sw_row", source="graphtyper_tpu_torch/csrc/sw_row.cu",
+             replaces="graphtyper_tpu/ops/sw_pallas.py:257", launches=row_launches,
+             max_abs_err=row["max_abs_err"], ms=main["row_ms"], plain_ms=main["plain_ms"], **common),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

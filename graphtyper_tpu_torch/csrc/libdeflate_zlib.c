@@ -1,8 +1,9 @@
-/* The eight libdeflate entry points that graphtyper_tpu/libgt_native.so
- * calls, implemented over zlib, for hosts that have zlib but no
- * libdeflate.so.0. Built with the SONAME libdeflate.so.0 and loaded before
- * the engine (graphtyper_tpu_torch/host.py), so the engine's DT_NEEDED
- * entry resolves to this library.
+/* The eight libdeflate entry points that the C++ engine (native/*.cpp, as
+ * the port builds it in io/native.py) calls, implemented over zlib, for
+ * hosts that have zlib but no libdeflate.so.0. Built with the SONAME
+ * libdeflate.so.0: the engine links this library, so its DT_NEEDED entry is
+ * libdeflate.so.0, and host.py loads the system library or this one under
+ * that name before the engine.
  *
  * Decompression is exact: one gzip member per call, as libdeflate does.
  * Compression writes valid raw DEFLATE streams whose bytes differ from
@@ -15,12 +16,7 @@
 #include <string.h>
 #include <zlib.h>
 
-enum libdeflate_result {
-  LIBDEFLATE_SUCCESS = 0,
-  LIBDEFLATE_BAD_DATA = 1,
-  LIBDEFLATE_SHORT_OUTPUT = 2,
-  LIBDEFLATE_INSUFFICIENT_SPACE = 3,
-};
+#include "libdeflate.h"
 
 struct libdeflate_decompressor {
   int unused;

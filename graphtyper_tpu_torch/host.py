@@ -1,11 +1,13 @@
-"""Host runtime the shared C++ engine needs.
+"""Host runtime of the port's C++ engine.
 
-graphtyper_tpu/libgt_native.so links libdeflate.so.0. On a host without
-that library, `ensure_native_runtime` builds csrc/libdeflate_zlib.c (the
-eight libdeflate calls the engine makes, over zlib) with the SONAME
-libdeflate.so.0 and loads it first, so the engine's dependency resolves to
-it. The package's import calls it, so every entry point and every region
-worker has the engine's runtime before anything loads the engine.
+The engine (native/*.cpp, built by io/native.py) calls eight libdeflate
+functions. It is compiled against the declarations in csrc/libdeflate.h
+and linked against csrc/libdeflate_zlib.c (those eight calls over zlib),
+built with the SONAME libdeflate.so.0, so the engine's DT_NEEDED entry is
+libdeflate.so.0. At run time `ensure_native_runtime` loads the system
+libdeflate.so.0 where the host has one, else the zlib stand-in, before
+anything loads the engine. The package's import calls it, so every entry
+point and every region worker has the engine's runtime.
 """
 
 from __future__ import annotations
@@ -20,11 +22,28 @@ from graphtyper_tpu_torch.kernels import CSRC, build_shared
 _SHIM = None
 
 
-def _c_compiler() -> str:
-    cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
-    if cc is None:
-        raise RuntimeError("no C compiler (CC, cc or gcc) to build the libdeflate shim")
-    return cc
+def _compiler(env: str, names: tuple[str, ...], what: str) -> str:
+    found = os.environ.get(env) or next(filter(None, map(shutil.which, names)), None)
+    if found is None:
+        raise RuntimeError(f"no {what} ({env}, {' or '.join(names)}) to build {what} sources")
+    return found
+
+
+def c_compiler() -> str:
+    return _compiler("CC", ("cc", "gcc"), "C compiler")
+
+
+def cxx_compiler() -> str:
+    return _compiler("CXX", ("g++", "c++"), "C++ compiler")
+
+
+def shim_path(build_dir: Path | None = None) -> Path:
+    """The zlib stand-in for libdeflate.so.0, built if needed."""
+    return build_shared(
+        "libdeflate_zlib", [CSRC / "libdeflate_zlib.c"], [c_compiler()], ["-O2", "-fPIC"],
+        build_dir, libs=("-lz",), link_flags=("-shared", "-Wl,-soname,libdeflate.so.0"),
+        depends=(CSRC / "libdeflate.h",),
+    )
 
 
 def ensure_native_runtime(build_dir: Path | None = None, force_shim: bool = False) -> str | None:
@@ -39,10 +58,7 @@ def ensure_native_runtime(build_dir: Path | None = None, force_shim: bool = Fals
             return None
         except OSError:
             pass
-    path = build_shared(
-        "libdeflate_zlib", [CSRC / "libdeflate_zlib.c"], [_c_compiler()],
-        ["-O2", "-shared", "-fPIC", "-Wl,-soname,libdeflate.so.0"], build_dir, libs=("-lz",),
-    )
+    path = shim_path(build_dir)
     ctypes.CDLL(str(path), mode=ctypes.RTLD_GLOBAL)
     _SHIM = str(path)
     return _SHIM

@@ -6,11 +6,16 @@ when a module is imported: the first launch builds (or finds) the library.
 Its file name carries a hash of the sources and the flags, so a process
 that finds it already built, such as a region worker after its parent
 built it before the fan-out, loads it without compiling.
+
+`build_shared` also builds the host libraries of the port (host.py, the
+C++ engine of io/native.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -22,10 +27,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: build outputs; listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parent.parent / "kernel_build"
 
-CUDA_SOURCES = ("sw_rot.cu",)
+CUDA_SOURCES = ("sw_rot.cu", "sw_row.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _LIB = None
@@ -46,33 +51,73 @@ def find_nvcc() -> str:
     return found
 
 
+@contextlib.contextmanager
+def _build_lock(build_dir: Path):
+    """Exclusive fcntl lock on the build directory: concurrent processes
+    (test workers, region workers) wait for one build instead of all
+    compiling the same library."""
+    with open(build_dir / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _run(cmd: list[str], out_name: str) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {out_name} failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+
+
 def build_shared(stem: str, sources: list[Path], compiler: list[str], flags: list[str],
-                 build_dir: Path | None = None, libs: tuple[str, ...] = ()) -> Path:
+                 build_dir: Path | None = None, libs: tuple[str, ...] = (),
+                 link_flags: tuple[str, ...] = ("-shared",),
+                 depends: tuple[Path, ...] = ()) -> Path:
     """Compile `sources` into <build_dir>/<stem>-<hash>.so unless that file
-    exists. The hash covers the sources, the compiler's name and the flags.
-    Writes to a temporary name and renames, so concurrent builds never
-    expose a half-written library."""
+    exists. The hash covers the sources, the files in `depends` (headers),
+    the compiler's name and the flags.
+
+    One source compiles and links in one command. Several compile to
+    objects in parallel, one compiler process each, all started together,
+    then link once. The build holds the directory's lock and writes to a
+    temporary name before renaming, so concurrent builds never expose a
+    half-written library."""
     build_dir = Path(build_dir or BUILD_DIR)
     h = hashlib.sha256()
-    for s in sources:
+    for s in (*sources, *depends):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join([os.path.basename(compiler[0]), *compiler[1:], *flags, *libs]).encode())
+    h.update(" ".join([os.path.basename(compiler[0]), *compiler[1:], *flags, *link_flags,
+                       *libs]).encode())
     out = build_dir / f"{stem}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     build_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=f".{stem}-", suffix=".so", dir=build_dir)
-    os.close(fd)
-    cmd = [*compiler, *flags, "-o", tmp, *map(str, sources), *libs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"building {out.name} failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with _build_lock(build_dir):
+        if out.exists():  # another process built it while this one waited
+            return out
+        with tempfile.TemporaryDirectory(prefix=f".{stem}-", dir=build_dir) as tmp_dir:
+            tmp = os.path.join(tmp_dir, out.name)
+            if len(sources) == 1:
+                _run([*compiler, *flags, *link_flags, "-o", tmp, str(sources[0]), *libs], out.name)
+            else:
+                objs = [os.path.join(tmp_dir, f"{i}-{s.stem}.o") for i, s in enumerate(sources)]
+                cmds = [[*compiler, *flags, "-c", "-o", o, str(s)] for o, s in zip(objs, sources)]
+                procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True) for c in cmds]
+                failed = []
+                for c, p in zip(cmds, procs):
+                    log = p.communicate()[0]
+                    if p.returncode != 0:
+                        failed.append(f"{' '.join(c)}\n{log}")
+                if failed:
+                    raise RuntimeError(f"building {out.name} failed:\n" + "\n".join(failed))
+                _run([*compiler, *link_flags, "-o", tmp, *objs, *libs], out.name)
+            os.replace(tmp, out)
     return out
 
 
@@ -94,5 +139,7 @@ def load(build_dir: Path | None = None) -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gt_sw_rot.restype = i32
     lib.gt_sw_rot.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+    lib.gt_sw_row.restype = i32
+    lib.gt_sw_row.argtypes = [vp] * 5 + [i32] * 8 + [vp]
     _LIB = lib
     return lib

@@ -4,7 +4,8 @@ Port of graphtyper_tpu/ops/discovery_pileup.py:117 aggregate_rows: six
 segment sums (hq, lq, proper, first, rev, clip) and two segment maxima
 (mapq, distance) per event, with empty maxima clamped to 0 (:94-112). Every
 row batch goes to the given device; there is no row-count threshold. The
-three smallest distinct read positions stay on the host (`_uniq_pos3`).
+three smallest distinct read positions stay on the host (`_uniq_pos3`,
+copied with `count_pairs` from the JAX module).
 """
 
 from __future__ import annotations
@@ -12,10 +13,53 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphtyper_tpu.ops.discovery_pileup import N_COUNTERS, _uniq_pos3, count_pairs
 from graphtyper_tpu_torch import counters
 
 __all__ = ["N_COUNTERS", "aggregate_rows", "count_pairs", "segment_counters"]
+
+N_COUNTERS = 11  # hq lq proper first rev clip max_mapq max_dist up1 up2 up3
+
+
+def _uniq_pos3(r_ev: np.ndarray, r_readpos: np.ndarray, n_events: int) -> np.ndarray:
+    """[n_events, 3] int64: the 3 smallest distinct read positions of the
+    SNP rows per event, -1-padded (EvSupport.uniq_pos1/2/3 semantics)."""
+    out = np.full((n_events, 3), -1, dtype=np.int64)
+    mask = r_readpos >= 0
+    if not mask.any():
+        return out
+    ev = r_ev[mask].astype(np.int64)
+    pos = r_readpos[mask]
+    order = np.lexsort((pos, ev))
+    ev = ev[order]
+    pos = pos[order]
+    keep = np.ones(len(ev), dtype=bool)
+    keep[1:] = (ev[1:] != ev[:-1]) | (pos[1:] != pos[:-1])
+    ev = ev[keep]
+    pos = pos[keep]
+    starts = np.searchsorted(ev, np.arange(n_events + 1))
+    for k in range(3):
+        idx = starts[:-1] + k
+        ok = idx < starts[1:]
+        out[ok, k] = pos[idx[ok]]
+    return out
+
+
+def count_pairs(p_a: np.ndarray, p_b: np.ndarray, n_events: int):
+    """Compact raw phase-pair rows into unique (a, b) -> count arrays
+    (the per-event phase maps of caller.cpp:1204-1236). Order-free."""
+    if len(p_a) == 0:
+        return (
+            np.zeros(0, dtype=np.int32),
+            np.zeros(0, dtype=np.int32),
+            np.zeros(0, dtype=np.int64),
+        )
+    key = p_a.astype(np.int64) * np.int64(n_events) + p_b.astype(np.int64)
+    uniq, counts = np.unique(key, return_counts=True)
+    return (
+        (uniq // n_events).astype(np.int32),
+        (uniq % n_events).astype(np.int32),
+        counts.astype(np.int64),
+    )
 
 
 def segment_counters(mat: torch.Tensor, n_events: int) -> torch.Tensor:

@@ -2,9 +2,11 @@
 
 Port of graphtyper_tpu/ops/site_scoring.py: `apply_tier` is the torch form
 of the jitted `_apply_tier_impl` (:144) and returns the same flat vector in
-the same order (:221-234); `ObsBatcher` subclasses the JAX package's
-batcher (:498) and applies every tier on its device, whatever the row
-count (no host threshold). The mesh-sharded apply is not ported here.
+the same order (:221-234); `ObsBatcher` (:498) applies every tier on its
+device, whatever the row count (no host threshold, no telemetry file). The
+mesh-sharded apply is not ported here. The observation layout, the tier
+buffers, the >64-allele host update and the materialization into site
+state are the JAX module's, copied.
 
 Every sum is an integer segment sum taken in int64 with `index_add_`, so
 the result is exact and independent of the order of the rows.
@@ -12,24 +14,68 @@ the result is exact and independent of the order of the rows.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from graphtyper_tpu.ops import site_scoring as _ref
-from graphtyper_tpu.ops.site_scoring import (
-    COV_MULTI_ALT,
-    COV_MULTI_REF,
-    OBS_FIELDS,
-    _chunk_rows,
-    _triangle_xy,
-    tier_for,
-)
 from graphtyper_tpu_torch import counters
 
 __all__ = [
     "ObsBatcher", "apply_tier", "split_totals", "tier_for", "totals_from_numpy",
     "totals_to_numpy",
 ]
+
+# coverage class encoding for buffered observations (host codes NO/MULTI_*
+# as large sentinels; the device buffer uses small negatives so real allele
+# classes can index per-allele segment sums directly)
+COV_MULTI_ALT = -1
+COV_MULTI_REF = -2
+COV_PAD = -3
+
+ALLELE_TIERS = (2, 4, 8, 16, 32, 64)
+
+#: columns of one observation row, in buffer order
+OBS_FIELDS = (
+    "site",
+    "sample",
+    "eps",
+    "apply_score",
+    "bits_lo",
+    "bits_hi",
+    "cov",
+    "clipped_scaled",
+    "clipped_flag",
+    "mapq_sq",
+    "mm_scaled",
+    "sdiff",
+    "strand",
+    "proper",
+)
+
+
+def tier_for(cnum: int) -> int | None:
+    for t in ALLELE_TIERS:
+        if cnum <= t:
+            return t
+    return None  # host fallback for >64-allele sites (rare)
+
+
+@lru_cache(maxsize=None)
+def _triangle_xy(A: int) -> tuple[np.ndarray, np.ndarray]:
+    xs, ys = [], []
+    for y in range(A):
+        for x in range(y + 1):
+            xs.append(x)
+            ys.append(y)
+    return np.asarray(xs), np.asarray(ys)
+
+
+def _chunk_rows(A: int) -> int:
+    """Rows per device call, sized so the [N, A, A] Gram tensor stays small."""
+    return max(4096, min(1 << 18, (1 << 23) // (A * A)))
+
 
 _F = {k: i for i, k in enumerate(OBS_FIELDS)}
 
@@ -129,18 +175,211 @@ def obs_matrix(cols_np: dict, n: int) -> np.ndarray:
     return mat
 
 
-class ObsBatcher(_ref.ObsBatcher):
-    """The JAX package's batcher with every tier applied on `device`.
+def apply_obs_host(
+    site,
+    sample: int,
+    eps: int,
+    apply_score: bool,
+    explains,
+    cov_code: int,
+    clipped_scaled: int,
+    clipped_flag: int,
+    mapq_sq: int,
+    mm_scaled: int,
+    sdiff: int,
+    strand: int,
+    proper: int,
+) -> None:
+    """Apply one observation row directly to HaplotypeSite state — the exact
+    integer updates of _apply_tier, for sites whose allele count exceeds the
+    device bitmask tiers (>64)."""
+    cnum = site.gt.num
+    vs = site.var_stats
+    vs.clipped_reads += clipped_flag
+    vs.mapq_squared += mapq_sq
+    is_allele = cov_code >= 0
+    if is_allele:
+        pa = vs.per_allele[cov_code]
+        pa.clipped_bp += clipped_scaled
+        pa.mapq_squared += mapq_sq
+        pa.mismatches += mm_scaled
+        pa.score_diff += sdiff
+        rs = vs.read_strand[cov_code]
+        if strand == 0:
+            rs.r1_forward += 1
+        elif strand == 1:
+            rs.r2_forward += 1
+        elif strand == 2:
+            rs.r1_reverse += 1
+        else:
+            rs.r2_reverse += 1
+    hs = site.hap_samples[sample]
+    if apply_score:
+        ex = [a for a in explains if a < cnum]
+        exset = set(ex)
+        i = 0
+        for y in range(cnum):
+            in_y = y in exset
+            for x in range(y + 1):
+                in_x = x in exset
+                if in_x and in_y:
+                    hs.log_score[i] += eps
+                elif in_x or in_y:
+                    hs.log_score[i] += eps - 1
+                i += 1
+        hs.max_log_score += eps
+    if cov_code == COV_MULTI_REF:
+        hs.ambiguous_depth = min(hs.ambiguous_depth + 1, 0xFF)
+    elif cov_code == COV_MULTI_ALT:
+        hs.ambiguous_depth = min(hs.ambiguous_depth + 1, 0xFF)
+        hs.ambiguous_depth_alt = min(hs.ambiguous_depth_alt + 1, 0xFF)
+        if proper:
+            hs.alt_proper_pair_depth = min(hs.alt_proper_pair_depth + 1, 0xFF)
+    else:
+        if hs.gt_coverage[cov_code] < 0xFFFF:
+            hs.gt_coverage[cov_code] += 1
+        if cov_code > 0 and proper:
+            hs.alt_proper_pair_depth = min(hs.alt_proper_pair_depth + 1, 0xFF)
 
-    Only the two flush hooks change; `tiers`, `_TierBuffer`, `_eps_sum`,
-    `maybe_flush`, `finalize` and `_materialize` are inherited, because the
-    native caller writes into them directly."""
+
+@dataclass
+class _TierBuffer:
+    A: int
+    site_ids: list[int] = field(default_factory=list)  # global site index per slot
+    slot_of: dict[int, int] = field(default_factory=dict)
+    cols: dict[str, list] = field(default_factory=lambda: {k: [] for k in OBS_FIELDS})
+    # bulk numpy blocks (native caller feed) — concatenated with `cols` at
+    # finalize; avoids per-element Python list churn for large pools
+    blocks: list[dict] = field(default_factory=list)
+
+    def slot(self, global_site: int) -> int:
+        s = self.slot_of.get(global_site)
+        if s is None:
+            s = len(self.site_ids)
+            self.slot_of[global_site] = s
+            self.site_ids.append(global_site)
+        return s
+
+    def materialize_cols(self) -> tuple[dict, int]:
+        """Concatenate list-cols and numpy blocks into one array per field."""
+        out = {}
+        n = 0
+        for k in OBS_FIELDS:
+            parts = [np.asarray(b[k], dtype=np.int64) for b in self.blocks]
+            if self.cols[k]:
+                parts.append(np.asarray(self.cols[k], dtype=np.int64))
+            out[k] = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+            n = len(out[k])
+        return out, n
+
+
+class ObsBatcher:
+    """Accumulates per-(read, site) observations and applies them to the
+    HaplotypeSite states in chunked passes per allele tier on `device`
+    (graphtyper_tpu/ops/site_scoring.py:498 without its mesh and host
+    paths)."""
 
     def __init__(self, sites, n_samples: int, device: torch.device | str):
-        super().__init__(sites, n_samples)
+        self.sites = sites
+        self.n_samples = n_samples
         self.device = torch.device(device)
+        self.tiers: dict[int, _TierBuffer] = {}
+        self._totals: dict = {}  # tier -> running flush totals (site-major)
+        # exact saturation tracking (haplotype.cpp:528-533): max_log_score is
+        # the running sum of applied eps; a read is skipped for scoring once
+        # the sum reaches 0xFFFF - eps
+        self._eps_sum = np.zeros((len(sites), n_samples), dtype=np.int64)
 
-    def _flush_tier_launch(self, tier: int, buf: _ref._TierBuffer):
+    def add(
+        self,
+        site_idx: int,
+        cnum: int,
+        sample: int,
+        eps: int,
+        explains,
+        cov_code: int,
+        clipped_scaled: int,
+        clipped_flag: int,
+        mapq_sq: int,
+        mm_scaled: int,
+        sdiff: int,
+        strand: int,
+        proper: int,
+    ) -> None:
+        tier = tier_for(cnum)
+        buf = self.tiers.get(tier)
+        if buf is None:
+            buf = self.tiers[tier] = _TierBuffer(A=tier)
+        apply_score = self._eps_sum[site_idx, sample] < 0xFFFF - eps
+        if apply_score:
+            self._eps_sum[site_idx, sample] += eps
+        lo = 0
+        hi = 0
+        for a in explains:
+            if a < cnum:
+                if a < 32:
+                    lo |= 1 << a
+                else:
+                    hi |= 1 << (a - 32)
+        c = buf.cols
+        c["site"].append(buf.slot(site_idx))
+        c["sample"].append(sample)
+        c["eps"].append(eps)
+        c["apply_score"].append(1 if apply_score else 0)
+        c["bits_lo"].append(lo)
+        c["bits_hi"].append(hi)
+        c["cov"].append(cov_code)
+        c["clipped_scaled"].append(clipped_scaled)
+        c["clipped_flag"].append(clipped_flag)
+        c["mapq_sq"].append(mapq_sq)
+        c["mm_scaled"].append(mm_scaled)
+        c["sdiff"].append(sdiff)
+        c["strand"].append(strand)
+        c["proper"].append(proper)
+
+    # ------------------------------------------------------------------
+
+    def maybe_flush(self, max_rows: int = 2_000_000) -> None:
+        """Apply buffered observations to the device-side running totals if
+        the buffer grew past `max_rows` — keeps host memory flat when the
+        streaming caller feeds millions of rows per pool."""
+        for tier, buf in self.tiers.items():
+            n = sum(len(np.atleast_1d(b["site"])) for b in buf.blocks) + len(buf.cols["site"])
+            if n >= max_rows:
+                self._flush_tier(tier, buf)
+
+    def finalize(self) -> None:
+        """Run the device passes and materialize all accumulated site state.
+        Every tier is launched before the first is collected."""
+        pending = [
+            (tier, buf, self._flush_tier_launch(tier, buf))
+            for tier, buf in self.tiers.items()
+        ]
+        for tier, buf, launched in pending:
+            self._flush_tier_collect(tier, launched)
+            totals = self._totals.pop(tier, None)
+            if totals is not None:
+                self._materialize(buf, totals, buf.A)
+
+    def _accumulate(self, tier: int, out: dict) -> None:
+        """Add one flush's outputs into the running totals, growing the
+        site-major arrays when the padded site bucket grew between flushes."""
+        prev = self._totals.get(tier)
+        if prev is None:
+            self._totals[tier] = out
+            return
+        for k, v in out.items():
+            p = prev[k]
+            if p.shape[0] < v.shape[0]:
+                widths = [(0, v.shape[0] - p.shape[0])] + [(0, 0)] * (p.ndim - 1)
+                p = np.pad(p, widths)
+            p[: v.shape[0]] += v
+            prev[k] = p
+
+    def _flush_tier(self, tier: int, buf: "_TierBuffer") -> None:
+        self._flush_tier_collect(tier, self._flush_tier_launch(tier, buf))
+
+    def _flush_tier_launch(self, tier: int, buf: _TierBuffer):
         """Ship the tier's rows in one transfer and apply them in chunks of
         `_chunk_rows(A)` rows (bounds the [N, T] Gram term); returns the
         summed device vector, or None when the tier holds no rows."""
@@ -168,3 +407,62 @@ class ObsBatcher(_ref.ObsBatcher):
         vec, n_sites = launched
         A = self.tiers[tier].A
         self._accumulate(tier, totals_to_numpy(split_totals(vec, A, n_sites, self.n_samples)))
+
+    def _materialize(self, buf: _TierBuffer, out: dict, A: int) -> None:
+        P = self.n_samples
+        for slot, gsite in enumerate(buf.site_ids):
+            site = self.sites[gsite]
+            cnum = site.gt.num
+            T = cnum * (cnum + 1) // 2
+            vs = site.var_stats
+            vs.clipped_reads += int(out["clip_reads"][slot])
+            vs.mapq_squared += int(out["site_mapq_sq"][slot])
+            for a in range(cnum):
+                pa = vs.per_allele[a]
+                pa.clipped_bp += int(out["pa_clip"][slot, a])
+                pa.mapq_squared += int(out["pa_mapq"][slot, a])
+                pa.mismatches += int(out["pa_mm"][slot, a])
+                pa.score_diff += int(out["pa_sdiff"][slot, a])
+                rs = vs.read_strand[a]
+                rs.r1_forward += int(out["pa_strand"][slot, a, 0])
+                rs.r2_forward += int(out["pa_strand"][slot, a, 1])
+                rs.r1_reverse += int(out["pa_strand"][slot, a, 2])
+                rs.r2_reverse += int(out["pa_strand"][slot, a, 3])
+            ls_mat = getattr(site, "log_scores", None)
+            batched_ls = ls_mat is not None and len(site.hap_samples) == P
+            lo = slot * P
+            if batched_ls:
+                # one add per site: every hap_sample's log_score is a row
+                # view of this matrix. The padded-A triangle enumerates
+                # (x<=y, y ascending), so the first T entries are exactly
+                # the cnum-allele triangle
+                ls_mat[:, :T] += out["log_delta"][lo : lo + P, :T]
+            cov_mat = getattr(site, "gt_coverages", None)
+            batched_cov = cov_mat is not None and len(site.hap_samples) == P
+            if batched_cov:
+                # gt_coverage rows are views of this matrix too: one clamped
+                # add per site replaces P per-sample numpy calls (the scalar
+                # twin sums the full delta then clamps — identical)
+                np.minimum(
+                    cov_mat[:, :cnum] + out["gt_cov"][lo : lo + P, :cnum],
+                    0xFFFF,
+                    out=cov_mat[:, :cnum],
+                )
+            # scalar fields: compute the saturating adds vectorized, assign
+            # per object (they are plain attributes, not matrix-backed)
+            amb_blk = out["amb"][lo : lo + P]
+            amba_blk = out["amb_alt"][lo : lo + P]
+            apd_blk = out["alt_pp"][lo : lo + P]
+            eps_blk = self._eps_sum[gsite]
+            for p in range(P):
+                hs = site.hap_samples[p]
+                if not batched_ls:
+                    hs.log_score[:T] += out["log_delta"][lo + p][:T]
+                if not batched_cov:
+                    hs.gt_coverage[:cnum] = np.minimum(
+                        hs.gt_coverage[:cnum] + out["gt_cov"][lo + p][:cnum], 0xFFFF
+                    )
+                hs.max_log_score += int(eps_blk[p])
+                hs.ambiguous_depth = min(hs.ambiguous_depth + int(amb_blk[p]), 0xFF)
+                hs.ambiguous_depth_alt = min(hs.ambiguous_depth_alt + int(amba_blk[p]), 0xFF)
+                hs.alt_proper_pair_depth = min(hs.alt_proper_pair_depth + int(apd_blk[p]), 0xFF)

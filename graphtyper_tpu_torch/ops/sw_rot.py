@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from graphtyper_tpu.constants import (
+from graphtyper_tpu_torch.constants import (
     SCORE_CLIP,
     SCORE_GAP_EXTEND,
     SCORE_GAP_OPEN,
@@ -142,32 +142,35 @@ def sw_align_plain(
     return score.to(i32), begin.to(i32), end.to(i32)
 
 
-def _check_kernel_inputs(queries, q_lens, databases, d_lens) -> None:
+def check_kernel_inputs(name: str, queries, q_lens, databases, d_lens) -> None:
+    """The layout the SW kernels take: CUDA tensors on one device, uint8
+    [B, M] and [B, N] codes, int32 [B] lengths, all contiguous. `name` is
+    the caller's, for the messages."""
     dev = queries.device
     if dev.type != "cuda":
-        raise ValueError(f"sw_align_rot: kernel inputs must be CUDA tensors, got {dev}")
-    for name, t, dtype, ndim in (
+        raise ValueError(f"{name}: kernel inputs must be CUDA tensors, got {dev}")
+    for arg, t, dtype, ndim in (
         ("queries", queries, torch.uint8, 2),
         ("q_lens", q_lens, torch.int32, 1),
         ("databases", databases, torch.uint8, 2),
         ("d_lens", d_lens, torch.int32, 1),
     ):
         if t.device != dev:
-            raise ValueError(f"sw_align_rot: {name} is on {t.device}, queries on {dev}")
+            raise ValueError(f"{name}: {arg} is on {t.device}, queries on {dev}")
         if t.dtype != dtype:
-            raise TypeError(f"sw_align_rot: {name} must be {dtype}, got {t.dtype}")
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if t.dim() != ndim:
-            raise ValueError(f"sw_align_rot: {name} must have {ndim} dims, got {tuple(t.shape)}")
+            raise ValueError(f"{name}: {arg} must have {ndim} dims, got {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"sw_align_rot: {name} must be contiguous")
+            raise ValueError(f"{name}: {arg} must be contiguous")
     B = queries.shape[0]
     if databases.shape[0] != B or q_lens.shape[0] != B or d_lens.shape[0] != B:
         raise ValueError(
-            "sw_align_rot: batch sizes differ: "
+            f"{name}: batch sizes differ: "
             f"{queries.shape[0]}, {q_lens.shape[0]}, {databases.shape[0]}, {d_lens.shape[0]}"
         )
     if max(B, queries.shape[1], databases.shape[1]) >= 2**31:
-        raise ValueError("sw_align_rot: B, M and N must each fit in an int32")
+        raise ValueError(f"{name}: B, M and N must each fit in an int32")
 
 
 def sw_align_rot(
@@ -190,7 +193,7 @@ def sw_align_rot(
         counters.COUNTS["sw_plain"] += 1
         return sw_align_plain(queries, q_lens, databases, d_lens, **scores)
     lib = kernels.load()
-    _check_kernel_inputs(queries, q_lens, databases, d_lens)
+    check_kernel_inputs("sw_align_rot", queries, q_lens, databases, d_lens)
     dev = queries.device
     B, M = queries.shape
     N = databases.shape[1]

@@ -2,11 +2,12 @@
 
 Forks of graphtyper_tpu/pipeline/genotype.py: `genotype` (:146),
 `genotype_only_with_a_vcf` (:20), `genotype_regions` (:388) and its region
-worker pool (:347, :461-485). The device is an argument threaded down to
-discovery and the call iterations. Region workers are spawn processes that
-get the device in the slot the JAX package used for the jax platform, load
-the kernel library their parent built before the fan-out, and return their
-event counters with their output path. There is no serial fallback: a
+worker pool (:347, :461-485); its two region helpers are copied. The device
+is an argument threaded down to discovery and the call iterations. Region
+workers are spawn processes that get the device in the slot the JAX
+package used for the jax platform, load the C++ engine and the kernel
+library their parent built before the fan-out, and return their event
+counters with their output path. There is no serial fallback: a
 failing worker fails the call.
 """
 
@@ -16,13 +17,48 @@ import os
 
 import torch
 
-from graphtyper_tpu.graph.build import construct_graph
-from graphtyper_tpu.graph.coords import GenomicRegion
-from graphtyper_tpu.index.build import index_graph
-from graphtyper_tpu.pipeline.genotype import _clamp_region_to_contig, apply_cohort_size_tuning
-from graphtyper_tpu.pipeline.vcf_operations import vcf_merge_and_break, vcf_merge_and_filter
 from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch.graph.build import construct_graph
+from graphtyper_tpu_torch.graph.coords import GenomicRegion
+from graphtyper_tpu_torch.index.build import index_graph
 from graphtyper_tpu_torch.pipeline.caller import call_pools
+from graphtyper_tpu_torch.pipeline.vcf_operations import vcf_merge_and_break, vcf_merge_and_filter
+
+
+def _clamp_region_to_contig(region: GenomicRegion, ref_path: str) -> None:
+    from graphtyper_tpu_torch.io.fasta import FastaFile
+
+    fasta = FastaFile(ref_path)
+    try:
+        if fasta.has_contig(region.chr):
+            region.end = min(region.end, fasta.contig_length(region.chr))
+    finally:
+        fasta.close()
+
+
+def apply_cohort_size_tuning(n_samples: int) -> None:
+    """Cohort-size parameter adjustment (genotype.cpp:693-732): larger
+    cohorts demand more per-variant support before extraction since spurious
+    candidates multiply with sample count. Mutates the global Options like
+    the reference's singleton."""
+    from graphtyper_tpu_torch.config import current_options, set_options
+    from dataclasses import replace as _replace
+
+    if n_samples < 4:
+        return
+    opts = current_options()
+    extract = opts.minimum_extract_score_over_homref + 6
+    if n_samples >= 1500:
+        extract += 3
+    set_options(
+        _replace(
+            opts,
+            genotype_aln_min_support=opts.genotype_aln_min_support + 1,
+            genotype_dis_min_support=opts.genotype_dis_min_support + 1,
+            genotype_aln_min_support_ratio=opts.genotype_aln_min_support_ratio + 0.02,
+            minimum_extract_score_over_homref=extract,
+        )
+    )
 
 
 def genotype_only_with_a_vcf(
@@ -107,8 +143,8 @@ def genotype(
     import shutil
     import tempfile
 
-    from graphtyper_tpu.graph.coords import AbsolutePosition
-    from graphtyper_tpu.io.fasta import FastaFile
+    from graphtyper_tpu_torch.graph.coords import AbsolutePosition
+    from graphtyper_tpu_torch.io.fasta import FastaFile
     from graphtyper_tpu_torch.typer.discovery import streamlined_discovery
 
     region = GenomicRegion.parse(region_str)
@@ -128,12 +164,12 @@ def genotype(
     os.makedirs(os.path.join(output_path, region.chr), exist_ok=True)
     os.makedirs(os.path.join(output_path, "input_sites", region.chr), exist_ok=True)
 
-    from graphtyper_tpu.config import current_options
+    from graphtyper_tpu_torch.config import current_options
 
     # read-preprocessing copy step (genotype.cpp:48-121 run_bamshrink): per
     # sample, slice + filter + trim into temp BAMs unless --no_bamshrink
     if not current_options().no_bamshrink:
-        from graphtyper_tpu.pipeline.bamshrink import run_bamshrink
+        from graphtyper_tpu_torch.pipeline.bamshrink import run_bamshrink
 
         sams = run_bamshrink(
             list(sams), padded, tmp, avg_cov_by_readlen, current_options(),
@@ -142,7 +178,7 @@ def genotype(
 
     # very large cohorts: merge per-sample inputs in chunks so pool readers
     # open fewer files (genotype.cpp:174-260)
-    from graphtyper_tpu.pipeline.sam_merge import run_sam_merge
+    from graphtyper_tpu_torch.pipeline.sam_merge import run_sam_merge
 
     sams = run_sam_merge(list(sams), tmp, current_options())
 
@@ -155,8 +191,8 @@ def genotype(
     ref_donor = None
     try:
         if current_options().native_caller != "off":
-            from graphtyper_tpu.typer.native_align import prebuild_reference_seed_filter
-            from graphtyper_tpu.utils.dna import encode
+            from graphtyper_tpu_torch.typer.native_align import prebuild_reference_seed_filter
+            from graphtyper_tpu_torch.utils.dna import encode
 
             f2 = FastaFile(ref_path)
             if f2.has_contig(padded.chr):
@@ -168,8 +204,8 @@ def genotype(
     sample_names: list[str] = []
     sites_vcf = streamlined_discovery(sams, ref_path, padded.to_string(), sample_names, device)
     if prior_vcf:
-        from graphtyper_tpu.io.vcf_io import VcfReader
-        from graphtyper_tpu.typer.variant import Variant as TyperVariant
+        from graphtyper_tpu_torch.io.vcf_io import VcfReader
+        from graphtyper_tpu_torch.typer.variant import Variant as TyperVariant
 
         for rec in VcfReader(prior_vcf).read_region(region.chr, region.begin, region.end):
             v = TyperVariant(
@@ -181,7 +217,7 @@ def genotype(
     sites_vcf.write(it1_final, contigs, abs_pos, filter_zero_qual=False, is_dropping_genotypes=True)
     # in-memory sites handoff: the file is the checkpoint, the records feed
     # the next iteration's graph directly (skips bgzf+tabix read-back)
-    from graphtyper_tpu.graph.build import records_from_vcf_output
+    from graphtyper_tpu_torch.graph.build import records_from_vcf_output
 
     prev_records = records_from_vcf_output(sites_vcf, abs_pos)
 
@@ -288,7 +324,7 @@ def _genotype_one(args_tuple):
     """Region worker (fork of graphtyper_tpu/pipeline/genotype.py:347):
     returns (output path, this job's event counters)."""
     ref_path, sams, sub_str, output_path, device, opts, kw = args_tuple
-    from graphtyper_tpu.config import set_options
+    from graphtyper_tpu_torch.config import set_options
 
     # spawn children start from default Options — restore the parent's
     set_options(opts)
@@ -311,9 +347,9 @@ def genotype_regions(
     (genotype.cpp:683-741, main.cpp:30-58). With processes > 1 the units
     fan out over a persistent spawn-process pool; each worker's counters are
     added to counters.WORKERS. Fork of graphtyper_tpu/pipeline/genotype.py:388."""
-    from graphtyper_tpu.config import current_options
-    from graphtyper_tpu.graph.coords import split_region
-    from graphtyper_tpu.io.fasta import FastaFile
+    from graphtyper_tpu_torch.config import current_options
+    from graphtyper_tpu_torch.graph.coords import split_region
+    from graphtyper_tpu_torch.io.fasta import FastaFile
 
     device = torch.device(device)
     apply_cohort_size_tuning(len(sams))
@@ -326,7 +362,7 @@ def genotype_regions(
     if len(subs) > 1:
         # index inputs once in the parent so every region worker's bamshrink
         # decodes only its slice (io/bai.py) instead of the whole file
-        from graphtyper_tpu.io.bai import ensure_bai
+        from graphtyper_tpu_torch.io.bai import ensure_bai
 
         if len(sams) > 1:
             from concurrent.futures import ThreadPoolExecutor
@@ -338,10 +374,14 @@ def genotype_regions(
     if processes is None:
         processes = getattr(current_options(), "threads", 1)
     if processes > 1 and len(subs) > 1:
+        # build once here; the workers find the libraries built
+        from graphtyper_tpu_torch.io.native import get_lib
+
+        get_lib()
         if device.type == "cuda":
             from graphtyper_tpu_torch import kernels
 
-            kernels.load()  # build once here; workers find the library built
+            kernels.load()
         jobs = [
             (ref_path, sams, s.to_string(), output_path, str(device), current_options(), kw)
             for s in subs

@@ -1,33 +1,658 @@
-"""Reference-based discovery with device realignment and device pileup.
+"""Reference-based variant discovery (iteration 1 of `genotype`).
 
-Forks of two functions of graphtyper_tpu/typer/discovery.py whose bodies
-call the device layer: `realign_to_indels` (:655) runs its SW batches
-through the port's `align_batch`, and `streamlined_discovery` (:788) runs
-the first-pass aggregation through the port's pileup and calls the forked
-realignment. Everything else is the JAX package's host code, imported.
-The multi-host `dist` argument is not ported yet.
+Reference semantics: src/typer/caller.cpp — run_first_pass (:488-1365,
+50bp-bucket CIGAR pileups with SNP has_good_support and indel
+realignment-support gates, phase counts), merge_haplotypes2 (:64-165),
+read_hts_and_return_realignment_indels (:2232-2510), realign_to_indels
+(:1855-2230, SW realignment with anti/multi support), streamlined_discovery
+(:2753-3095, the driver + VCF emission with GT_ID/GT_HAPLOTYPE/
+GT_ANTI_HAPLOTYPE).
+
+Port of graphtyper_tpu/typer/discovery.py. The first pass, the bucket
+structures and the read replay are the JAX module's host code, copied. Two
+functions that call the device layer are forks: `realign_to_indels` (:655)
+runs its SW batches through the port's `align_batch`, and
+`streamlined_discovery` (:788) runs the first-pass aggregation through the
+port's pileup and calls the forked realignment. The multi-host `dist`
+argument is not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 import torch
 
-from graphtyper_tpu.io.bam import AlignedRead, read_alignments_cached
-from graphtyper_tpu.graph.coords import GenomicRegion
-from graphtyper_tpu.typer.discovery import (
-    BUCKET_SIZE,
-    Bucket2,
-    ReadIndelEvent,
-    _add_indel_support,
-    _replace_indel_events,
-    merge_haplotypes2,
-    read_reads_into_buckets,
-    run_first_pass,
+from graphtyper_tpu_torch.constants import (
+    IS_CLIPPED,
+    IS_FIRST_IN_PAIR,
+    IS_PROPER_PAIR,
+    IS_REVERSED,
+    SCORE_CLIP,
+    SCORE_GAP_EXTEND,
+    SCORE_GAP_OPEN,
+    SCORE_MATCH,
+    SCORE_MISMATCH,
 )
-from graphtyper_tpu.typer.events import READ_ANTI_SUPPORT, READ_MULTI_SUPPORT, Event, apply_indel_event
-from graphtyper_tpu.typer.variant import Variant
-from graphtyper_tpu.typer.vcf_out import VcfOutput
+from graphtyper_tpu_torch.graph.coords import GenomicRegion
+from graphtyper_tpu_torch.io.bam import AlignedRead, read_alignments_cached
+from graphtyper_tpu_torch.typer.events import (
+    READ_ANTI_SUPPORT,
+    READ_MULTI_SUPPORT,
+    Event,
+    EventSupport,
+    apply_indel_event,
+    compute_indel_span,
+    get_log_qual_double,
+)
+from graphtyper_tpu_torch.typer.variant import Variant
+from graphtyper_tpu_torch.typer.vcf_out import VcfOutput
+
+BUCKET_SIZE = 50
+
+
+ACGT = frozenset(b"ACGT")
+
+
+@dataclass
+class HaplotypeInfo:
+    ever_together: set = field(default_factory=set)
+    always_together: set = field(default_factory=set)
+
+
+@dataclass(slots=True)
+class BucketFirstPass:
+    global_max_pos_end: int = -1
+    max_pos_end: int = -1
+    events: dict = field(default_factory=dict)  # Event -> EventSupport
+
+
+@dataclass(slots=True)
+class ReadIndelEvent:
+    read_pos: int
+    event: Event
+
+
+@dataclass(slots=True)
+class Alignment2:
+    pos: int = -1
+    pos_end: int = -1
+    score: int = -(2**31)
+    num_clipped_begin: int = 0
+    num_clipped_end: int = 0
+    num_ins_begin: int = 0
+    indel_events: list = field(default_factory=list)
+
+    def has_indel_event(self, event: Event) -> bool:
+        for e in self.indel_events:
+            if e.event == event:
+                return e.read_pos != READ_ANTI_SUPPORT
+        return False
+
+
+@dataclass(slots=True)
+class Read2:
+    name: str = ""
+    mate_pos: int = -1
+    flags: int = 0
+    mapq: int = 255
+    sequence: bytes = b""
+    qual: np.ndarray = None
+    alignment: Alignment2 = field(default_factory=Alignment2)
+
+
+@dataclass(slots=True)
+class Bucket2:
+    global_max_pos_end: int = -1
+    max_pos_end: int = -1
+    events: dict = field(default_factory=dict)  # Event -> EventSupport (shared refs)
+    reads: list = field(default_factory=list)
+
+
+def _sorted_events(d: dict) -> list:
+    return sorted(d.keys(), key=lambda e: e.sort_key())
+
+
+def _is_clipped(cigar, min_count: int = 1) -> bool:
+    if not cigar:
+        return False
+    if cigar[0][0] == 4 and cigar[0][1] >= min_count:
+        return True
+    if cigar[-1][0] == 4 and cigar[-1][1] >= min_count:
+        return True
+    return False
+
+
+def _add_event_to_bucket(buckets: list, event: Event, region_begin: int, reference: bytes, ref_offset: int, is_indel: bool):
+    idx = (event.pos - region_begin) // BUCKET_SIZE
+    while idx >= len(buckets):
+        buckets.append(BucketFirstPass())
+    b = buckets[idx]
+    info = b.events.get(event)
+    if info is None:
+        info = EventSupport()
+        if is_indel:
+            info.span = compute_indel_span(event, reference, ref_offset)
+        b.events[event] = info
+    return info
+
+
+def run_first_pass(
+    reads: list[AlignedRead],
+    region_begin: int,
+    reference: bytes,
+    opts=None,
+) -> tuple[list[BucketFirstPass], dict]:
+    """caller.cpp:488-1365 for one sample. Returns (buckets, sample_haplotypes)."""
+    REF_SIZE = len(reference)
+    buckets: list[BucketFirstPass] = []
+    cov_up = np.zeros(REF_SIZE, dtype=np.int64)
+    cov_down = np.zeros(REF_SIZE, dtype=np.int64)
+    sample_haplotypes: dict = {}
+    global_max_pos_end = 0
+    HIGH_EVENT_COUNT = 12
+    VHIGH_EVENT_COUNT = 18
+
+    # vectorized per-base mismatch scan support: validity masks computed once
+    ref_arr = np.frombuffer(reference, dtype=np.uint8)
+    is_acgt = np.zeros(256, dtype=bool)
+    for _c in b"ACGT":
+        is_acgt[_c] = True
+    ref_ok = is_acgt[ref_arr]
+
+    # bulk prepass: mismatch offsets of all pure-M reads found in one matrix
+    # compare per read length (the dominant case); other cigars fall back to
+    # the per-op compare below
+    bulk_hits: dict[int, np.ndarray] = {}
+    by_len: dict[int, list[int]] = {}
+    for ri, read in enumerate(reads):
+        if (
+            len(read.cigar) == 1
+            and read.cigar[0][0] in (0, 7, 8)
+            and read.pos >= region_begin
+            and read.pos - region_begin + len(read.seq) <= REF_SIZE
+            and read.cigar[0][1] == len(read.seq)
+        ):
+            by_len.setdefault(len(read.seq), []).append(ri)
+    for L_r, idxs in by_len.items():
+        if len(idxs) < 8:
+            continue
+        mat = np.frombuffer(b"".join(reads[ri].seq for ri in idxs), dtype=np.uint8).reshape(
+            len(idxs), L_r
+        )
+        starts = np.array([reads[ri].pos - region_begin for ri in idxs])
+        refs = ref_arr[starts[:, None] + np.arange(L_r)[None, :]]
+        mism = (mat != refs) & is_acgt[mat] & is_acgt[refs]
+        rows, cols = np.nonzero(mism)
+        split = np.searchsorted(rows, np.arange(len(idxs) + 1))
+        for k, ri in enumerate(idxs):
+            bulk_hits[ri] = cols[split[k] : split[k + 1]]
+
+    # bulk coverage + bucket bookkeeping for EVERY read (order-faithful:
+    # cov_up/cov_down are order-free sums; bucket.max_pos_end is the max of
+    # its reads' alignment ends; global_max_pos_end at a bucket is the
+    # running max as of its last read, reads being position-sorted)
+    valid_ri: list[int] = []
+    valid_ends: list[int] = []
+    for ri, read in enumerate(reads):
+        if not read.cigar or read.pos < region_begin:
+            continue
+        off = read.pos - region_begin
+        if off >= REF_SIZE:
+            break
+        span = sum(c for opc, c in read.cigar if opc in (0, 2, 3, 7, 8))
+        valid_ri.append(ri)
+        valid_ends.append(min(off + span, REF_SIZE - 1))
+    if valid_ri:
+        starts_v = np.array([reads[ri].pos - region_begin for ri in valid_ri])
+        ends_v = np.array(valid_ends)
+        np.add.at(cov_up, starts_v, 1)
+        np.add.at(cov_down, ends_v, 1)
+        b_idx = starts_v // BUCKET_SIZE
+        n_b = int(b_idx.max()) + 1
+        while len(buckets) < n_b:
+            buckets.append(BucketFirstPass())
+        ends_abs = ends_v + region_begin
+        bucket_max = np.full(n_b, -1, dtype=np.int64)
+        np.maximum.at(bucket_max, b_idx, ends_abs)
+        run_max = np.maximum.accumulate(ends_abs)
+        global_max_pos_end = int(run_max[-1])
+        for b in np.unique(b_idx):
+            buckets[b].max_pos_end = int(bucket_max[b])
+            last = int(np.searchsorted(b_idx, b, side="right")) - 1
+            buckets[b].global_max_pos_end = int(run_max[last])
+
+    for ri, read in enumerate(reads):
+        if not read.cigar or read.pos < region_begin:
+            continue
+        ref_offset = read.pos - region_begin
+        if ref_offset >= REF_SIZE:
+            break
+        # pure-M reads without mismatches produce no events; their coverage
+        # and bucket state were handled in the bulk pass above
+        pre_hits = bulk_hits.get(ri)
+        if pre_hits is not None and len(pre_hits) == 0:
+            continue
+
+        read_offset = 0
+        seq = read.seq
+        seq_arr = np.frombuffer(seq, dtype=np.uint8)
+        qual = read.qual
+        is_read_clipped = _is_clipped(read.cigar)
+        cigar_events: list[tuple[Event, EventSupport]] = []
+
+        for op, cnt in read.cigar:
+            if ref_offset >= REF_SIZE:
+                break
+            if op in (0, 7, 8):  # M, =, X
+                pre = bulk_hits.get(ri)
+                if pre is not None:
+                    hits = pre
+                else:
+                    # mismatch positions in one vector compare (bounded by
+                    # both the reference end and the read end)
+                    n_cmp = min(cnt, REF_SIZE - ref_offset, len(seq) - read_offset)
+                    if n_cmp > 0:
+                        a = seq_arr[read_offset : read_offset + n_cmp]
+                        b_ = ref_arr[ref_offset : ref_offset + n_cmp]
+                        mism = (a != b_) & ref_ok[ref_offset : ref_offset + n_cmp] & is_acgt[a]
+                        hits = np.nonzero(mism)[0]
+                    else:
+                        hits = ()
+                for r in map(int, hits):
+                    ref_pos = ref_offset + r
+                    read_pos = read_offset + r
+                    read_b = seq[read_pos]
+                    ev = Event(ref_pos + region_begin, "X", bytes([read_b]))
+                    info = _add_event_to_bucket(buckets, ev, region_begin, reference, ref_pos, False)
+                    if qual[read_pos] >= 25:
+                        info.hq_count += 1
+                    else:
+                        info.lq_count += 1
+                    if read.mapq != 255 and read.mapq > info.max_mapq:
+                        info.max_mapq = read.mapq
+                    info.proper_pairs += (read.flag & IS_PROPER_PAIR) != 0
+                    info.first_in_pairs += (read.flag & IS_FIRST_IN_PAIR) != 0
+                    info.sequence_reversed += (read.flag & IS_REVERSED) != 0
+                    info.clipped += is_read_clipped
+                    if info.uniq_pos1 == -1:
+                        info.uniq_pos1 = read.pos
+                    elif info.uniq_pos2 == -1:
+                        if info.uniq_pos1 != read.pos:
+                            info.uniq_pos2 = read.pos
+                    elif info.uniq_pos3 == -1 and info.uniq_pos2 != read.pos:
+                        info.uniq_pos3 = read.pos
+                    max_distance = min(read_pos, len(seq) - 1 - read_pos)
+                    if max_distance > info.max_distance:
+                        info.max_distance = max_distance
+                    cigar_events.append((ev, info))
+                read_offset += cnt
+                ref_offset += cnt
+            elif op == 1:  # I
+                piece = seq[read_offset : read_offset + cnt]
+                if piece and all(c in ACGT for c in piece):
+                    ev = Event(region_begin + ref_offset, "I", bytes(piece))
+                    info = _add_event_to_bucket(buckets, ev, region_begin, reference, ref_offset, True)
+                    info.hq_count += 1
+                    if read.mapq != 255 and read.mapq > info.max_mapq:
+                        info.max_mapq = read.mapq
+                    info.proper_pairs += (read.flag & IS_PROPER_PAIR) != 0
+                    info.sequence_reversed += (read.flag & IS_REVERSED) != 0
+                    info.clipped += is_read_clipped
+                    cigar_events.append((ev, info))
+                read_offset += cnt
+            elif op == 2:  # D
+                if ref_offset + cnt >= REF_SIZE:
+                    ref_offset += cnt
+                    continue
+                del_seq = reference[ref_offset : ref_offset + cnt]
+                if all(c in ACGT for c in del_seq):
+                    ev = Event(region_begin + ref_offset, "D", del_seq)
+                    info = _add_event_to_bucket(buckets, ev, region_begin, reference, ref_offset, True)
+                    info.hq_count += 1
+                    if read.mapq != 255 and read.mapq > info.max_mapq:
+                        info.max_mapq = read.mapq
+                    info.proper_pairs += (read.flag & IS_PROPER_PAIR) != 0
+                    info.sequence_reversed += (read.flag & IS_REVERSED) != 0
+                    info.clipped += is_read_clipped
+                    cigar_events.append((ev, info))
+                ref_offset += cnt
+            elif op == 4:  # S
+                read_offset += cnt
+            # H/P: nothing
+
+        # demote event support on messy reads (caller.cpp:1114-1146)
+        if len(cigar_events) >= HIGH_EVENT_COUNT:
+            for _, info in cigar_events:
+                if len(cigar_events) >= VHIGH_EVENT_COUNT:
+                    if info.hq_count > 0:
+                        info.hq_count -= 1
+                    elif info.lq_count > 0:
+                        info.lq_count -= 1
+                else:
+                    if info.hq_count > 0:
+                        info.hq_count -= 1
+                        info.lq_count += 1
+
+        if len(cigar_events) < VHIGH_EVENT_COUNT:
+            for e in range(1, len(cigar_events)):
+                ev = cigar_events[e][0]
+                for prev in range(e):
+                    prev_info = cigar_events[prev][1]
+                    prev_info.phase[ev] = prev_info.phase.get(ev, 0) + 1
+
+    # trim excess buckets
+    if (len(buckets) - 1) * BUCKET_SIZE >= REF_SIZE:
+        buckets = buckets[: (REF_SIZE - 1) // BUCKET_SIZE + 1]
+    NUM_BUCKETS = len(buckets)
+    net_cov = cov_up - cov_down
+    cum = np.concatenate([[0], np.cumsum(net_cov)])  # cum[i] = depth entering pos i
+
+    def cov_at(pos: int) -> int:
+        """Reads overlapping position pos (depth after processing pos)."""
+        return int(cum[min(pos + 1, REF_SIZE)])
+
+    # SNP filter (caller.cpp:915-990)
+    for b in range(NUM_BUCKETS):
+        bucket = buckets[b]
+        for ev in _sorted_events(bucket.events):
+            if ev.type != "X":
+                continue
+            info = bucket.events[ev]
+            begin = max(0, ev.pos - region_begin)
+            cov = cov_at(begin)
+            gate_kw = {}
+            if opts is not None:
+                gate_kw = dict(
+                    filter_on_proper_pairs=getattr(opts, "filter_on_proper_pairs", True),
+                    no_filter_on_begin_pos=getattr(opts, "no_filter_on_begin_pos", False),
+                    filter_on_read_bias=getattr(opts, "filter_on_read_bias", True),
+                    filter_on_strand_bias=getattr(opts, "filter_on_strand_bias", True),
+                )
+            if not info.has_good_support(cov, **gate_kw):
+                del bucket.events[ev]
+
+    # indel realignment-support gates (caller.cpp:993-1190)
+    for b in range(NUM_BUCKETS):
+        bucket = buckets[b]
+        for ev in _sorted_events(bucket.events):
+            if ev.type == "X":
+                continue
+            info = bucket.events[ev]
+            naive_pad = int(4.0 + len(ev.sequence) / 3.0)
+            naive_begin = max(0, ev.pos - naive_pad - region_begin)
+            naive_end = min(REF_SIZE, ev.pos + info.span + naive_pad - region_begin)
+            correction = (
+                (len(ev.sequence) / 2.0 + 8.0) / 8.0 if ev.type == "I" else (len(ev.sequence) / 3.0 + 10.0) / 10.0
+            )
+            count = correction * (info.hq_count + info.lq_count)
+            # coverage of reads spanning the whole naive interval
+            # (caller.cpp:1050-1081): depth entering naive_begin, minus reads
+            # ending within [max(bucket_start, naive_begin), naive_end]
+            cov = int(cum[naive_begin])
+            s = max(b * BUCKET_SIZE, naive_begin)
+            end_limit = min(naive_end, REF_SIZE - 1)
+            if s <= end_limit:
+                cov -= int(cov_down[s : end_limit + 1].sum())
+            corrected_cov = max(float(cov), count)
+            anti_count_d = corrected_cov - count
+            log_qual = get_log_qual_double(count, anti_count_d, 10.0)
+            if (
+                info.hq_count >= 6
+                and count >= 8.0
+                and log_qual >= 60
+                and info.sequence_reversed > 0
+                and info.sequence_reversed < info.hq_count
+                and info.proper_pairs >= 3
+                and info.max_mapq >= 20
+                and (info.clipped == 0 or (info.clipped + 3) <= info.hq_count)
+            ):
+                info.has_indel_good_support = True
+                info.has_realignment_support = True
+                info.max_log_qual = log_qual
+                info.max_log_qual_file_i = 0
+            elif (
+                count >= 3.0
+                and log_qual > 0
+                and info.proper_pairs >= 1
+                and (info.hq_count >= 5 or info.max_mapq >= 25)
+                and info.max_mapq >= 10
+                and info.clipped < info.hq_count
+            ):
+                info.has_realignment_support = True
+                info.max_log_qual = log_qual
+                info.max_log_qual_file_i = 0
+            else:
+                del bucket.events[ev]
+
+    # SNP haplotype phase analysis (caller.cpp:1193-1360)
+    for b in range(NUM_BUCKETS):
+        bucket = buckets[b]
+        for ev in _sorted_events(bucket.events):
+            if ev not in bucket.events:
+                continue
+            info = bucket.events[ev]
+            begin = max(0, ev.pos - region_begin)
+            cov = cov_at(begin)
+            hap = sample_haplotypes.setdefault(ev, HaplotypeInfo())
+            support_ratio = max(0.3, info.get_raw_support() / max(cov, 1))
+
+            def is_good_support(ev2: Event) -> int:
+                is_indel = ev.type != "X" or ev2.type != "X"
+                support = info.phase.get(ev2, 0)
+                if is_indel:
+                    if support == 0:
+                        return 2  # anti
+                    return 3  # both
+                end = max(0, ev2.pos - region_begin)
+                local_cov = cov - int(cov_down[begin + 1 : min(end, REF_SIZE - 1) + 1].sum())
+                if local_cov <= 2:
+                    return 0
+                r = support / local_cov / support_ratio
+                if r < 0.22:
+                    return 2
+                if r > 0.78:
+                    return 1
+                return 3
+
+            def scan(other_events):
+                for ev2 in other_events:
+                    if ev2.pos == ev.pos and ev2.type == ev.type:
+                        continue
+                    if ev2.pos <= ev.pos:
+                        continue
+                    if ev2.pos >= ev.pos + 2 * BUCKET_SIZE:
+                        continue
+                    flags = is_good_support(ev2)
+                    if flags & 1:
+                        hap.ever_together.add(ev2)
+                        if ev2.pos <= ev.pos + 10:
+                            hap.always_together.add(ev2)
+
+            # this bucket: events after ev
+            evs = _sorted_events(bucket.events)
+            scan([e for e in evs if e.sort_key() > ev.sort_key()])
+            if b + 1 < NUM_BUCKETS:
+                scan(_sorted_events(buckets[b + 1].events))
+            if b + 2 < NUM_BUCKETS:
+                scan(_sorted_events(buckets[b + 2].events))
+
+            if ev.type == "X":
+                del bucket.events[ev]
+
+    return buckets, sample_haplotypes
+
+
+def merge_haplotypes2(into: dict, from_: dict) -> None:
+    """caller.cpp:64-165 — cross-sample intersection of always_together,
+    union of ever_together."""
+    if not into:
+        into.update(from_)
+        from_.clear()
+        return
+    for ev in sorted(from_.keys(), key=lambda e: e.sort_key()):
+        from_hap = from_[ev]
+        if ev not in into:
+            into[ev] = from_hap
+            # drop always-links to events already known in `into` (they were
+            # not always-together in the other samples)
+            from_hap.always_together = {e for e in from_hap.always_together if e not in into}
+        else:
+            into_hap = into[ev]
+            into_hap.ever_together |= from_hap.ever_together
+            into_hap.always_together &= from_hap.always_together
+    from_.clear()
+
+
+def _add_indel_support(info: EventSupport, read_pos: int, flags: int, mapq: int) -> None:
+    """read.cpp Alignment::add_indel_event (:29-55)."""
+    if read_pos == READ_ANTI_SUPPORT:
+        info.anti_count += 1
+    elif read_pos == READ_MULTI_SUPPORT:
+        info.multi_count += 1
+    else:
+        info.hq_count += 1
+        if flags & IS_REVERSED:
+            info.sequence_reversed += 1
+        if flags & IS_PROPER_PAIR:
+            info.proper_pairs += 1
+        if mapq < 255 and mapq > info.max_mapq:
+            info.max_mapq = mapq
+
+
+def _replace_indel_events(read: Read2, events_map: dict, new_events: list) -> None:
+    """read.cpp:57-115."""
+    for e in read.alignment.indel_events:
+        info = events_map[e.event]
+        if e.read_pos == READ_ANTI_SUPPORT:
+            info.anti_count -= 1
+        elif e.read_pos == READ_MULTI_SUPPORT:
+            info.multi_count -= 1
+        else:
+            info.hq_count -= 1
+            if (read.flags & IS_REVERSED) and info.sequence_reversed > 0:
+                info.sequence_reversed -= 1
+            if (read.flags & IS_PROPER_PAIR) and info.proper_pairs > 0:
+                info.proper_pairs -= 1
+    for e in new_events:
+        info = events_map[e.event]
+        _add_indel_support(info, e.read_pos, read.flags, read.mapq)
+    read.alignment.indel_events = new_events
+
+
+def read_reads_into_buckets(
+    reads: list[AlignedRead],
+    events_map: dict,
+    num_buckets: int,
+    region_begin: int,
+    reference: bytes,
+) -> tuple[list[Bucket2], int]:
+    """caller.cpp:2232-2510 — re-read the sample, score reads against the
+    reference, register indel events from CIGARs."""
+    REF_SIZE = len(reference)
+    buckets = [Bucket2() for _ in range(num_buckets)]
+    max_read_size = 100
+    global_max_pos_end = 0
+
+    for r in reads:
+        if not r.cigar or r.pos < region_begin:
+            continue
+        ref_offset = r.pos - region_begin
+        if ref_offset < 0 or ref_offset >= REF_SIZE:
+            continue
+        bucket_index = ref_offset // BUCKET_SIZE
+        if bucket_index >= len(buckets):
+            buckets.extend(Bucket2() for _ in range(bucket_index + 1 - len(buckets)))
+        if r.query_length > max_read_size:
+            max_read_size = r.query_length
+
+        read = Read2(
+            name=r.name + ("/1" if r.flag & IS_FIRST_IN_PAIR else "/2"),
+            mate_pos=r.mate_pos,
+            flags=r.flag,
+            mapq=r.mapq,
+            sequence=bytes(r.seq),
+            qual=r.qual,
+        )
+        read.alignment.score = 0
+        read_offset = 0
+
+        for i, (op, cnt) in enumerate(r.cigar):
+            if ref_offset >= REF_SIZE:
+                break
+            if op in (0, 7, 8):
+                ref_piece = reference[ref_offset : ref_offset + cnt]
+                piece = read.sequence[read_offset : read_offset + cnt]
+                n = min(len(ref_piece), len(piece))
+                for k in range(n):
+                    a, bb = piece[k], ref_piece[k]
+                    if a != bb and a != ord("N") and bb != ord("N"):
+                        read.alignment.score -= SCORE_MISMATCH
+                    else:
+                        read.alignment.score += SCORE_MATCH
+                read_offset += cnt
+                ref_offset += cnt
+            elif op == 1:
+                piece = read.sequence[read_offset : read_offset + cnt]
+                if piece:
+                    ev = Event(region_begin + ref_offset, "I", bytes(piece))
+                    info = events_map.get(ev)
+                    if info is None:
+                        info = EventSupport()
+                        info.span = compute_indel_span(ev, reference, ref_offset)
+                        events_map[ev] = info
+                    # register in bucket
+                    _bucket_for_event(buckets, ev, region_begin).events[ev] = info
+                    if not info.has_realignment_support:
+                        read.alignment.score -= SCORE_GAP_OPEN + (cnt - 1) * SCORE_GAP_EXTEND
+                    else:
+                        read.alignment.score += SCORE_MATCH * cnt
+                    _add_indel_support(info, read_offset, read.flags, read.mapq)
+                    read.alignment.indel_events.append(ReadIndelEvent(read_offset, ev))
+                read_offset += cnt
+            elif op == 2:
+                if ref_offset + cnt >= REF_SIZE:
+                    continue
+                ev = Event(region_begin + ref_offset, "D", reference[ref_offset : ref_offset + cnt])
+                info = events_map.get(ev)
+                if info is None:
+                    info = EventSupport()
+                    info.span = compute_indel_span(ev, reference, ref_offset)
+                    events_map[ev] = info
+                _bucket_for_event(buckets, ev, region_begin).events[ev] = info
+                if not info.has_realignment_support:
+                    read.alignment.score -= SCORE_GAP_OPEN + (cnt - 1) * SCORE_GAP_EXTEND
+                _add_indel_support(info, read_offset, read.flags, read.mapq)
+                read.alignment.indel_events.append(ReadIndelEvent(read_offset, ev))
+                ref_offset += cnt
+            elif op == 4:
+                read_offset += cnt
+                read.flags |= IS_CLIPPED
+                read.alignment.score -= SCORE_CLIP
+                if i == 0:
+                    read.alignment.num_clipped_begin = cnt
+                else:
+                    read.alignment.num_clipped_end = cnt
+
+        read.alignment.pos = r.pos
+        read.alignment.pos_end = region_begin + ref_offset
+        bucket = buckets[bucket_index]
+        end_with_clip = read.alignment.pos_end + read.alignment.num_clipped_end
+        if end_with_clip > bucket.max_pos_end:
+            bucket.max_pos_end = end_with_clip
+            global_max_pos_end = max(global_max_pos_end, end_with_clip)
+        bucket.global_max_pos_end = global_max_pos_end
+        bucket.reads.append(read)
+
+    return buckets, max_read_size
+
+
+def _bucket_for_event(buckets: list, ev: Event, region_begin: int) -> Bucket2:
+    idx = (ev.pos - region_begin) // BUCKET_SIZE
+    while idx >= len(buckets):
+        buckets.append(Bucket2())
+    return buckets[idx]
 
 
 def realign_to_indels(
@@ -44,7 +669,7 @@ def realign_to_indels(
     promotes indels to good support. Fork of
     graphtyper_tpu/typer/discovery.py:655; the SW batches go to the port's
     align_batch on `device`."""
-    from graphtyper_tpu.utils.dna import encode
+    from graphtyper_tpu_torch.utils.dna import encode
     from graphtyper_tpu_torch.ops.sw import align_batch
 
     REF_SIZE = len(reference)
@@ -180,7 +805,7 @@ def streamlined_discovery(
     argument. The split first pass aggregates every file's rows in one call
     on `device` (device_discovery "auto" and "on" alike; "off" keeps the
     monolithic native pass), and realignment runs on `device`."""
-    from graphtyper_tpu.io.fasta import FastaFile
+    from graphtyper_tpu_torch.io.fasta import FastaFile
 
     region = GenomicRegion.parse(region_str)
     fasta = FastaFile(ref_path)
@@ -189,7 +814,7 @@ def streamlined_discovery(
     reference = fasta.fetch(region.chr, region.begin, region.end)
     region_begin = region.begin
     chromosome_offset = 0
-    from graphtyper_tpu.graph.coords import AbsolutePosition
+    from graphtyper_tpu_torch.graph.coords import AbsolutePosition
 
     abs_pos = AbsolutePosition(fasta.contigs)
     # event positions are 0-based region offsets; +offset_of(chr,1) makes the
@@ -202,12 +827,11 @@ def streamlined_discovery(
     num_buckets = 0
     per_file_reads: list[list[AlignedRead]] = []
 
-    from graphtyper_tpu.config import current_options
+    from graphtyper_tpu_torch.config import current_options
 
     use_native_fp = current_options().native_caller != "off"
     if use_native_fp:
-        from graphtyper_tpu.typer import native_discovery
-        from graphtyper_tpu_torch.typer import native_discovery as device_discovery
+        from graphtyper_tpu_torch.typer import native_discovery
 
         use_native_fp = native_discovery.available()
 
@@ -219,7 +843,7 @@ def streamlined_discovery(
         if use_native_fp and path.endswith(".bam"):
             # native first pass straight from BAM bytes; reads load lazily
             # only if this file later needs realignment
-            from graphtyper_tpu.pipeline.native_caller import _bam_bytes, _parse_bam_header_meta
+            from graphtyper_tpu_torch.pipeline.native_caller import _bam_bytes, _parse_bam_header_meta
 
             data = _bam_bytes(path)
             meta = _parse_bam_header_meta(data)
@@ -253,7 +877,7 @@ def streamlined_discovery(
     use_rows = use_native_fp and getattr(opts_now, "device_discovery", "auto") != "off"
     extracts: dict[int, tuple] = {}  # file_i -> (extract dict, name)
     if use_rows:
-        from graphtyper_tpu.pipeline.native_caller import _bam_bytes, _parse_bam_header_meta
+        from graphtyper_tpu_torch.pipeline.native_caller import _bam_bytes, _parse_bam_header_meta
 
         def _extract_one(fp):
             file_i, path = fp
@@ -281,7 +905,7 @@ def streamlined_discovery(
         extracts = {fi: r for (fi, _p), r in zip(owned, xs) if r is not None}
         if extracts:
             order = sorted(extracts)
-            counters_list = device_discovery.aggregate_cohort(
+            counters_list = native_discovery.aggregate_cohort(
                 [extracts[fi][0] for fi in order], device
             )
 
@@ -368,7 +992,7 @@ def streamlined_discovery(
         if use_native_fp and hts_paths[file_i].endswith(".bam"):
             # native second pass straight from BAM bytes (no AlignedRead
             # objects; C++ scores CIGARs, Python replays event support)
-            from graphtyper_tpu.pipeline.native_caller import _bam_bytes, _parse_bam_header_meta
+            from graphtyper_tpu_torch.pipeline.native_caller import _bam_bytes, _parse_bam_header_meta
 
             data = _bam_bytes(hts_paths[file_i])
             meta = _parse_bam_header_meta(data)

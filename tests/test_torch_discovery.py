@@ -10,13 +10,13 @@ from dataclasses import replace
 import numpy as np
 import pytest
 
-from graphtyper_tpu.config import DEFAULT_OPTIONS, current_options, set_options
+from graphtyper_tpu import config as ref_config
 from graphtyper_tpu.io.fasta import FastaFile
 from graphtyper_tpu.pipeline.native_caller import _bam_bytes, _parse_bam_header_meta
 from graphtyper_tpu.typer import discovery as ref_discovery
 from graphtyper_tpu.typer import native_discovery as ref_nd
 from graphtyper_tpu.utils.simulate import SimConfig, simulate_cohort
-from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch import config, counters
 from graphtyper_tpu_torch.typer import discovery as port_discovery
 from graphtyper_tpu_torch.typer import native_discovery as port_nd
 
@@ -47,12 +47,15 @@ def cohort(tmp_path_factory):
 
 
 def _first_pass_state(out):
+    """The first pass's state with each package's Event objects as their
+    sort keys, so that the two packages' states compare."""
     buckets, sample_haps = out
     state = []
     for b in buckets:
         for ev in sorted(b.events, key=lambda e: e.sort_key()):
             info = b.events[ev]
-            state.append((ev.sort_key(), [getattr(info, f) for f in FIELDS], info.phase))
+            phase = sorted((e.sort_key(), n) for e, n in info.phase.items())
+            state.append((ev.sort_key(), [getattr(info, f) for f in FIELDS], phase))
     haps = {
         ev.sort_key(): (sorted(e.sort_key() for e in h.ever_together),
                         sorted(e.sort_key() for e in h.always_together))
@@ -63,11 +66,11 @@ def _first_pass_state(out):
 
 def test_first_pass_rows_match_reference(cohort):
     _sim, reference, files = cohort
-    opts = current_options()
+    opts, port_opts = ref_config.current_options(), config.current_options()
     for data, target in files:
         want = _first_pass_state(ref_nd.run_first_pass_native(data, target, 0, reference, opts))
         assert _first_pass_state(ref_nd.run_first_pass_rows(data, target, 0, reference, opts)) == want
-        got = port_nd.run_first_pass_rows(data, target, 0, reference, opts, "cpu")
+        got = port_nd.run_first_pass_rows(data, target, 0, reference, port_opts, "cpu")
         assert _first_pass_state(got) == want
         assert want[0], "the first pass found no events"
 
@@ -92,7 +95,8 @@ def _variants(vcf):
 @pytest.mark.parametrize("device_discovery", ["auto", "on", "off"])
 def test_streamlined_discovery_matches_reference(cohort, device_discovery):
     sim, _reference, _files = cohort
-    set_options(replace(DEFAULT_OPTIONS, device_discovery=device_discovery))
+    for cfg in (config, ref_config):  # each package reads its own options
+        cfg.set_options(replace(cfg.DEFAULT_OPTIONS, device_discovery=device_discovery))
     counters.reset()
     try:
         ref_names: list[str] = []
@@ -100,7 +104,8 @@ def test_streamlined_discovery_matches_reference(cohort, device_discovery):
         names: list[str] = []
         got = port_discovery.streamlined_discovery(list(sim.sams), sim.fasta, REGION, names, "cpu")
     finally:
-        set_options(DEFAULT_OPTIONS)
+        for cfg in (config, ref_config):
+            cfg.set_options(cfg.DEFAULT_OPTIONS)
     assert names == ref_names
     assert _variants(got) == _variants(want)
     assert any(len(s) != 1 for v in got.variants for s in v.seqs), "no indel was discovered"

@@ -1,7 +1,9 @@
-"""The zlib stand-in for libdeflate.so.0 (graphtyper_tpu_torch/host.py),
-which hosts without libdeflate need to load the shared C++ engine. Forced
-in a subprocess in place of the system library, the engine must load
-against it and the whole genotype path must write the same VCF contents."""
+"""The port's C++ engine runtime: the engine that io/native.py builds from
+native/*.cpp, and the zlib stand-in for libdeflate.so.0
+(graphtyper_tpu_torch/host.py) that hosts without libdeflate need to load
+it. Forced in a subprocess in place of the system library, the port's
+engine must load against it and the port's genotype path must write the VCF
+contents of the JAX package."""
 
 import gzip
 import hashlib
@@ -10,6 +12,8 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 from graphtyper_tpu.config import DEFAULT_OPTIONS, set_options
 from graphtyper_tpu.pipeline.genotype import genotype_regions
@@ -48,12 +52,12 @@ def test_engine_runs_on_zlib_shim(tmp_path):
         sys.modules["graphtyper_tpu_torch"] = pkg
         from graphtyper_tpu_torch.host import ensure_native_runtime
         shim = ensure_native_runtime(build_dir={str(tmp_path / "build")!r}, force_shim=True)
-        from graphtyper_tpu.io.native import get_lib
+        from graphtyper_tpu_torch.io.native import get_lib
         assert get_lib() is not None
         maps = open("/proc/self/maps").read()
-        from graphtyper_tpu.pipeline.genotype import genotype_regions
+        from graphtyper_tpu_torch.pipeline.genotype import genotype_regions
         outs = genotype_regions({sim.fasta!r}, {sim.sams!r}, {region!r}, {str(tmp_path / "shim")!r},
-                                processes=1)
+                                "cpu", processes=1)
         print(json.dumps({{"shim_mapped": shim in maps,
                            "system_mapped": any("libdeflate.so" in l and shim not in l
                                                 for l in maps.splitlines()),
@@ -65,3 +69,28 @@ def test_engine_runs_on_zlib_shim(tmp_path):
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["shim_mapped"] and not got["system_mapped"], got
     assert _md5(got["outs"]) == want
+
+
+def test_engine_build_raises_without_sources(monkeypatch, tmp_path):
+    """The port builds its engine from native/*.cpp or raises; it never
+    looks for a prebuilt binary."""
+    from graphtyper_tpu_torch.io import native
+
+    monkeypatch.setattr(native, "NATIVE_DIR", tmp_path / "no_native")
+    with pytest.raises(RuntimeError, match="sources are missing"):
+        native.engine_path(tmp_path / "build")
+    assert not (tmp_path / "build").exists()
+
+
+def test_engine_links_libdeflate_by_soname():
+    """The engine's DT_NEEDED entry is libdeflate.so.0, whichever library
+    host.py loads under that name."""
+    from graphtyper_tpu_torch.io.native import engine_path
+
+    proc = subprocess.run(["readelf", "-d", str(engine_path())], capture_output=True, text=True)
+    if proc.returncode != 0:
+        proc = subprocess.run(["objdump", "-p", str(engine_path())], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    needed = [line for line in proc.stdout.splitlines() if "NEEDED" in line]
+    assert any("libdeflate.so.0" in line for line in needed), needed
+    assert not any("libdeflate_zlib" in line for line in needed), needed

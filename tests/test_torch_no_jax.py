@@ -1,8 +1,11 @@
-"""The port stands without jax and never hides the device: a whole CLI
-`genotype` run leaves jax out of sys.modules, no module of the package
-imports jax, the CLI refuses to run without a GPU unless told `--device
-cpu`, and a non-CPU tensor whose kernel cannot be built raises."""
+"""The port stands alone and never hides the device: a whole CLI `genotype`
+run leaves jax and the JAX package out of sys.modules, no source of the
+port imports either, every import of the port resolves inside it, the C++
+engine it loads is its own build, the CLI refuses to run without a GPU
+unless told `--device cpu`, and a non-CPU tensor whose kernel cannot be
+built raises."""
 
+import ast
 import os
 import pathlib
 import re
@@ -24,12 +27,16 @@ JAX_MODULES = (
 )
 
 
-def test_cli_genotype_run_never_imports_jax(tmp_path):
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """A CLI `genotype` run on the CPU device in a fresh process, started
+    with the port's own simulator; (its stdout, its output directory)."""
+    tmp_path = tmp_path_factory.mktemp("no_jax")
     script = textwrap.dedent(
         f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
-        from graphtyper_tpu.utils.simulate import SimConfig, simulate_cohort
+        from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
         from graphtyper_tpu_torch import cli, counters
         cfg = SimConfig(region_length=8000, coverage=12, n_samples=2, error_rate=0.005,
                         out_format="bam", seed=3)
@@ -43,14 +50,84 @@ def test_cli_genotype_run_never_imports_jax(tmp_path):
         assert counters.totals().get("scoring_rows", 0) > 0
         print("JAX_LOADED", "jax" in sys.modules,
               sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")))
+        print("JAX_PACKAGE_LOADED",
+              sorted(m for m in sys.modules if m.split(".")[0] == "graphtyper_tpu"))
+        from graphtyper_tpu_torch.io import native
+        print("ENGINE", native.get_lib()._name)
         """
     )
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "JAX_LOADED False []" in proc.stdout, proc.stdout[-2000:]
-    assert list((tmp_path / "out").rglob("*.vcf.gz"))
+    return proc.stdout, tmp_path / "out"
+
+
+def test_cli_genotype_run_never_imports_jax(cli_run):
+    out, out_dir = cli_run
+    assert "JAX_LOADED False []" in out, out[-2000:]
+    assert list(out_dir.rglob("*.vcf.gz"))
+
+
+def test_cli_genotype_run_never_imports_jax_package(cli_run):
+    """After the same run, no module of the JAX package is loaded, and the
+    engine that the port loaded is the one it built into kernel_build/."""
+    out, _ = cli_run
+    assert "JAX_PACKAGE_LOADED []" in out, out[-2000:]
+    engine = pathlib.Path(out.split("ENGINE ", 1)[1].split()[0])
+    assert engine.parent == REPO / "kernel_build", engine
+    assert engine.name.startswith("gt_native-") and engine.is_file()
+
+
+IMPORT_OF_JAX_PACKAGE = re.compile(r"^\s*(from|import)\s+graphtyper_tpu(\.|\s|$)", re.M)
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_sources_import_no_jax_package():
+    offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+                 for p in _port_sources() for m in IMPORT_OF_JAX_PACKAGE.finditer(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_port_imports_resolve_inside_the_port():
+    """Every `graphtyper_tpu_torch.*` import of the port (module level or in a
+    function) names a module file of the package, or a name that the
+    module it is imported from defines."""
+    unresolved = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [(a.name, None) for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                names = [(node.module, a.name) for a in node.names]
+            else:
+                continue
+            for module, name in names:
+                if module.split(".")[0] != PKG.name:
+                    continue
+                base = REPO.joinpath(*module.split("."))
+                mod_file = base.with_suffix(".py") if base.with_suffix(".py").is_file() else base / "__init__.py"
+                if not mod_file.is_file():
+                    unresolved.append(f"{path.relative_to(REPO)}:{node.lineno}: {module}")
+                    continue
+                if name is None or name == "*":
+                    continue
+                sub = base / name
+                if sub.with_suffix(".py").is_file() or (sub / "__init__.py").is_file():
+                    continue
+                defined = {n.id for n in ast.walk(ast.parse(mod_file.read_text()))
+                           if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store)}
+                for n in ast.walk(ast.parse(mod_file.read_text())):
+                    if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                        defined.add(n.name)
+                    elif isinstance(n, (ast.Import, ast.ImportFrom)):
+                        defined.update((a.asname or a.name).split(".")[0] for a in n.names)
+                if name not in defined:
+                    unresolved.append(f"{path.relative_to(REPO)}:{node.lineno}: {module}.{name}")
+    assert not unresolved, unresolved
 
 
 def test_package_sources_import_no_jax():
@@ -68,8 +145,8 @@ def test_package_sources_import_no_jax():
 
 
 def test_cli_default_device_requires_cuda(monkeypatch, tmp_path):
-    from graphtyper_tpu.config import DEFAULT_OPTIONS, set_options
     from graphtyper_tpu_torch import cli
+    from graphtyper_tpu_torch.config import DEFAULT_OPTIONS, set_options
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     try:

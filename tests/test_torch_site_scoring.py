@@ -8,11 +8,13 @@ import numpy as np
 import pytest
 import torch
 
-from graphtyper_tpu.graph.graph import Genotype
-from graphtyper_tpu.models.genotype_model import HaplotypeSite
+from graphtyper_tpu.graph import graph as ref_graph
+from graphtyper_tpu.models import genotype_model as ref_model
 from graphtyper_tpu.ops import site_scoring as ref
 from graphtyper_tpu.ops.site_scoring import COV_PAD, OBS_FIELDS
 from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch.graph import graph as port_graph
+from graphtyper_tpu_torch.models import genotype_model as port_model
 from graphtyper_tpu_torch.ops import site_scoring as port
 
 
@@ -80,10 +82,11 @@ def test_totals_round_trip():
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)
 
 
-def _sites(cnums, n_samples):
+def _sites(cnums, n_samples, graph, model):
+    """Sites of one package (its graph and genotype-model modules)."""
     sites = []
     for i, c in enumerate(cnums):
-        s = HaplotypeSite(Genotype(id=100 + i, num=c, first_variant_node=0))
+        s = model.HaplotypeSite(graph.Genotype(id=100 + i, num=c, first_variant_node=0))
         s.clear_and_resize_samples(n_samples)
         sites.append(s)
     return sites
@@ -122,7 +125,8 @@ def test_obs_batcher_matches_reference():
     (through totals_to_numpy), then equal materialized site state."""
     cnums = [2, 3, 2, 5, 8, 2, 40, 4]
     n_samples = 3
-    ref_sites, port_sites = _sites(cnums, n_samples), _sites(cnums, n_samples)
+    ref_sites = _sites(cnums, n_samples, ref_graph, ref_model)
+    port_sites = _sites(cnums, n_samples, port_graph, port_model)
     rb = ref.ObsBatcher(ref_sites, n_samples)
     pb = port.ObsBatcher(port_sites, n_samples, "cpu")
     _feed(rb, np.random.default_rng(8), cnums, 600, n_samples)
@@ -151,7 +155,7 @@ def test_site_scorer_refuses_host_scoring():
     refuses it instead of ignoring it."""
     from dataclasses import replace
 
-    from graphtyper_tpu.config import DEFAULT_OPTIONS, set_options
+    from graphtyper_tpu_torch.config import DEFAULT_OPTIONS, set_options
     from graphtyper_tpu_torch.typer.scoring import SiteScorer
 
     set_options(replace(DEFAULT_OPTIONS, device_scoring="off"))

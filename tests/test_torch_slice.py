@@ -9,10 +9,10 @@ from dataclasses import replace
 
 import pytest
 
-from graphtyper_tpu.config import DEFAULT_OPTIONS, set_options
+from graphtyper_tpu import config as ref_config
 from graphtyper_tpu.pipeline import genotype as ref_genotype
 from graphtyper_tpu.utils.simulate import SimConfig, simulate_cohort
-from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch import config, counters
 from graphtyper_tpu_torch.pipeline import genotype as port_genotype
 
 # a cohort whose realignment outcomes reach the VCF: with every SW result
@@ -35,20 +35,27 @@ def _md5(paths):
 def cohort(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_slice")
     sim = simulate_cohort(str(root / "sim"), CFG)
-    set_options(DEFAULT_OPTIONS)  # genotype_regions tunes the global options per cohort
+    _reset_options()  # genotype_regions tunes the global options per cohort
     try:
         outs = ref_genotype.genotype_regions(
             sim.fasta, sim.sams, REGION, str(root / "ref"), max_region_size=UNIT, processes=1
         )
     finally:
-        set_options(DEFAULT_OPTIONS)
+        _reset_options()
     return sim, root, _md5(outs)
+
+
+def _reset_options():
+    """Each package reads its own options; both start from the defaults."""
+    for cfg in (config, ref_config):
+        cfg.set_options(cfg.DEFAULT_OPTIONS)
 
 
 @pytest.mark.parametrize("processes,streaming", [(1, "auto"), (2, "auto"), (1, "on")])
 def test_port_matches_reference_vcf(cohort, processes, streaming):
     sim, root, ref_md5 = cohort
-    set_options(replace(DEFAULT_OPTIONS, streaming_caller=streaming))
+    _reset_options()
+    config.set_options(replace(config.DEFAULT_OPTIONS, streaming_caller=streaming))
     counters.reset()
     try:
         outs = port_genotype.genotype_regions(
@@ -56,7 +63,7 @@ def test_port_matches_reference_vcf(cohort, processes, streaming):
             max_region_size=UNIT, processes=processes,
         )
     finally:
-        set_options(DEFAULT_OPTIONS)
+        _reset_options()
         port_genotype.shutdown_region_pool()
     assert len(outs) == 2
     assert _md5(outs) == ref_md5

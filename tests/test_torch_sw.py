@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from graphtyper_tpu.config import DEFAULT_OPTIONS, set_options
+from graphtyper_tpu import config as ref_config
 from graphtyper_tpu.ops.sw import align_batch as ref_align_batch
 from graphtyper_tpu.ops.sw_rot import sw_align_rot as ref_sw_align_rot
-from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch import config, counters
 from graphtyper_tpu_torch.ops.sw import align_batch
 from graphtyper_tpu_torch.ops.sw_rot import sw_align_plain, sw_align_rot
 
@@ -78,6 +78,43 @@ def _empty_lengths():
     return Q, qlens, D, dlens
 
 
+def e_tie_batch(seed, B=16, M=24, N=128):
+    """Pairs whose best alignment takes a deletion (E) from one of two
+    columns with equal prefix values T = H + (j + 1) * ge and different
+    starts, so the E scan's tie rule (the latest column wins) decides the
+    database begin. The database holds a homopolymer of L bases, an N code,
+    d bases the read deletes, then the read's tail; the read is the
+    homopolymer and the tail. Ending the homopolymer at its last base (score
+    L) or one column later over the N code (score L - 1) gives equal T.
+    Half the pairs end the homopolymer on the last column of a lane's strip
+    of the row-scan kernel (csrc/sw_row.cu), half inside one, and d reaches
+    up to three strips, so the in-strip pass, the shuffle scan and the
+    fix-up pass each meet a tie."""
+    rng = np.random.default_rng(seed)
+    C = 1  # the row-scan kernel's strip width at this N
+    while 32 * C < N:
+        C *= 2
+    Q = np.full((B, M), 5, np.uint8)
+    D = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    for b in range(B):
+        a = b % 4
+        L = int(rng.integers(M // 2 - 1, M // 2 + 2))
+        tail = M - L
+        d = int(rng.integers(1, max(2, min(tail - 2, L - 2, 3 * C + 2))))
+        span = L + 1 + d + tail
+        s = int(rng.integers(1, N - span + 1))
+        s += ((0 if b % 2 == 0 else C // 2) - (s + L)) % C
+        if s + span > N:
+            s -= C
+        D[b, s - 1] = (a + 1) % 4  # the homopolymer starts at s
+        D[b, s : s + L] = a
+        D[b, s + L] = 4
+        D[b, s + L + 1] = (a + 2) % 4
+        Q[b, :L] = a
+        Q[b, L:] = D[b, s + L + 1 + d : s + span]
+    return Q, np.full(B, M, np.int32), D, np.full(B, N, np.int32)
+
+
 CASES = {
     "random0": lambda: _randomized(0),
     "random1": lambda: _randomized(1),
@@ -85,6 +122,7 @@ CASES = {
     "adversarial": _adversarial,
     "length_edges": _length_edges,
     "empty_lengths": _empty_lengths,
+    "e_ties": lambda: e_tie_batch(3),
 }
 
 
@@ -136,12 +174,15 @@ def test_align_batch_matches_reference(device_sw):
     from dataclasses import replace
 
     Q, qlens, D, dlens = _randomized(5)
-    set_options(replace(DEFAULT_OPTIONS, device_sw=device_sw))
+    # each package reads its own options
+    for cfg in (config, ref_config):
+        cfg.set_options(replace(cfg.DEFAULT_OPTIONS, device_sw=device_sw))
     try:
         got = align_batch(Q, qlens, D, dlens, device="cpu")
         want = ref_align_batch(Q, qlens, D, dlens, device=False)
     finally:
-        set_options(DEFAULT_OPTIONS)
+        for cfg in (config, ref_config):
+            cfg.set_options(cfg.DEFAULT_OPTIONS)
     np.testing.assert_array_equal(got.score, want.score)
     np.testing.assert_array_equal(got.database_begin, want.database_begin)
     np.testing.assert_array_equal(got.database_end, want.database_end)
