@@ -4,16 +4,26 @@ Phases, one line each, none of them caught:
   1. card     nvidia-smi name and power limit, torch's CUDA version
   2. kernels  build the CUDA kernels from graphtyper_tpu_torch/csrc
      engine   build the C++ engine from native/*.cpp (io/native.py)
-  3. kernel   sw_align_rot (CUDA kernel) against sw_align_plain on the card,
-              exactly, at 4096 pairs x 192 x 512, at the main path's batch
-              of 6 pairs, and on the tie, length-edge, empty and E-scan tie
-              batches; CUDA-event times of both
+     empty    CUDA-event time of a one-element torch op (an empty launch)
+  3. kernel   sw_align_rot (the wavefront CUDA kernel) against sw_align_plain
+              on the card, exactly, at 4096 pairs x 192 x 512, at the main
+              path's batch of 6 pairs, on the tie, length-edge, empty and
+              E-scan tie batches, on a 576-column window with a 30 bp
+              insertion and on queries of two 256-row bands; CUDA-event
+              times of both
      row      sw_align_pallas (the row-scan CUDA kernel) against
               sw_align_plain on the card, exactly, at 4096 x 192 x 512, at
               the bench tool's 4096 x 152 x 256, at 1, 6, 40 and 4096 pairs
               x 151 x 506, and on the tie, length-edge, empty and E-scan tie
-              batches (strip widths 1 to 16); CUDA-event times of both
-              kernels and the plain version
+              batches (strip widths 1 to 16); sw_align_rot on all of those
+              and on the two long batches; CUDA-event times of both kernels
+              and the plain version, the bound, and sw_rot's latency floor
+              modelled from assumed latencies (printed on this line only)
+     rows     sw_align_rot at R = 5 rows a lane (M = 151) against R = 8 (the
+              same queries padded to one band) on CUDA events, and the
+              wrapper's host time, at 1 and 40 pairs x 151 x 506
+     realign  ops/sw.py align_batch whole (copies in, kernel, copy out) on a
+              host timer at 1, 6 and 40 pairs, beside the kernel's time
      bench    python -m graphtyper_tpu_torch.tools.bench_sw --row, then
               --rot, each in a subprocess: parity with the C++ engine's
               host DP and Gcell/s; the --row run is the row kernel's path
@@ -24,10 +34,12 @@ Phases, one line each, none of them caught:
               region loop of four 50 kb units over 4 region workers), and
               50 kb, 10x, 4 samples, error rate 0.02, whose VCF changes when
               the SW results are discarded, so a wrong kernel result shows
-The tests hold the port's CPU path to the JAX package byte for byte
+The SW batches come from tests/test_torch_sw_batches.py. The tests hold
+the port's CPU path to the JAX package byte for byte
 (tests/test_torch_slice.py, tests/test_torch_sw.py).
 Then one JSON line of the kernels (launches on their paths, error, times,
-bound), and the last line
+bound; for sw_rot also its times and bounds per shape, the empty launch,
+the align_batch times and the R = 5 / R = 8 times), and the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a GPU, and outside a checkout of the repository.
 """
@@ -74,6 +86,19 @@ PATH_BATCHES = (1, 6, 40, 4096)  # the main path sends 1-40 pairs a call
 SW_OPS_PER_CELL = 26
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+# A model of the wavefront kernel's latency floor (csrc/sw_rot.cu), not a
+# measurement: the longest warp's steps (per band of 32 * R rows,
+# min(dlen, N) + busy lanes - 1) times the dependent cycles of one step: one
+# __shfl_up_sync round, then R cells whose final H feeds the row below
+# through 4 dependent int32 operations (tH - go, the F max, M against F, E
+# against H_tmp), at the SM's maximum clock, plus the measured empty launch.
+# The two latencies are guesses, not measured on the card and not taken
+# from a cited source: 4 cycles a dependent integer operation and 30 cycles
+# a shuffle round. The "rows" phase measures what a step and a cell cost.
+DEP_OPS_PER_CELL = 4
+DEP_OP_CYCLES = 4
+SHFL_CYCLES = 30
+REALIGN_BATCHES = (1, 6, 40)  # align_batch timed whole at the main path's batch sizes
 
 
 def _md5(paths):
@@ -85,64 +110,11 @@ def _md5(paths):
     return h.hexdigest()
 
 
-def _planted(np, seed, B, M, N):
-    """151 bp reads (some trimmed) padded to M, against windows of 494-N
-    valid bases with N codes; three in four reads are planted hits with
-    substitutions and an indel-sized shift."""
-    rng = np.random.default_rng(seed)
-    qlens = np.full(B, 151, np.int32)
-    qlens[::16] = rng.integers(100, 151, len(qlens[::16]))  # some trimmed reads
-    dlens = rng.integers(494, N + 1, B).astype(np.int32)
-    Q = np.full((B, M), 5, np.uint8)
-    D = np.full((B, N), 5, np.uint8)
-    for b in range(B):
-        D[b, : dlens[b]] = rng.integers(0, 4, dlens[b])
-        D[b, rng.integers(0, dlens[b], 3)] = 4  # N codes in the window
-        if b % 4:  # planted hit with substitutions and an indel-sized shift
-            st = int(rng.integers(0, dlens[b] - qlens[b] - 8))
-            hit = D[b, st : st + qlens[b] + 8].copy()
-            cut = int(rng.integers(20, 120))
-            hit = np.concatenate([hit[:cut], hit[cut + (b % 8) :]])[: qlens[b]]
-            Q[b, : qlens[b]] = hit
-            Q[b, rng.integers(0, qlens[b], 3)] = rng.integers(0, 5, 3)
-        else:
-            Q[b, : qlens[b]] = rng.integers(0, 4, qlens[b])
-    return Q, qlens, D, dlens
-
-
-def _e_ties(np, seed, B, M, N):
-    """tests/test_torch_sw.py e_tie_batch: the best alignment deletes from
-    one of two columns with equal E-scan prefix values and different
-    starts (a homopolymer, then an N code), so the scan's tie rule decides
-    the begin, in the row kernel's in-strip pass, shuffle scan and fix-up."""
-    rng = np.random.default_rng(seed)
-    C = 1
-    while 32 * C < N:
-        C *= 2
-    Q = np.full((B, M), 5, np.uint8)
-    D = rng.integers(0, 4, (B, N)).astype(np.uint8)
-    for b in range(B):
-        a = b % 4
-        L = int(rng.integers(M // 2 - 1, M // 2 + 2))
-        tail = M - L
-        d = int(rng.integers(1, max(2, min(tail - 2, L - 2, 3 * C + 2))))
-        span = L + 1 + d + tail
-        s = int(rng.integers(1, N - span + 1))
-        s += ((0 if b % 2 == 0 else C // 2) - (s + L)) % C
-        if s + span > N:
-            s -= C
-        D[b, s - 1] = (a + 1) % 4
-        D[b, s : s + L] = a
-        D[b, s + L] = 4
-        D[b, s + L + 1] = (a + 2) % 4
-        Q[b, :L] = a
-        Q[b, L:] = D[b, s + L + 1 + d : s + span]
-    return Q, np.full(B, M, np.int32), D, np.full(B, N, np.int32)
-
-
 def _kernel_batches(np):
     """(name, (Q, qlens, D, dlens)) batches; inputs made with numpy from seeds."""
-    batches = [("main", _planted(np, 2024, *KERNEL_SHAPE))]
+    from test_torch_sw_batches import e_tie_batch, insertion_batch, planted_batch, two_band_batch
+
+    batches = [("main", planted_batch(2024, *KERNEL_SHAPE))]
 
     # tests/ops/test_sw_rot.py: adversarial ties and gaps
     rng = np.random.default_rng(99)
@@ -177,7 +149,12 @@ def _kernel_batches(np):
 
     # E-scan ties at the row kernel's strip widths 1, 4, 8 and 16
     for M, N in ((12, 32), (24, 128), (40, 256), (151, 506), (192, 512)):
-        batches.append((f"e_ties_{M}x{N}", _e_ties(np, N, 64, M, N)))
+        batches.append((f"e_ties_{M}x{N}", e_tie_batch(N, B=64, M=M, N=N)))
+
+    # sw_rot.cu only (sw_row.cu takes N <= 512): a window widened by a 30 bp
+    # insertion, and queries of two 256-row bands through the band scratch
+    batches.append(("insertion_N576", insertion_batch(11, 512)))
+    batches.append(("two_bands_300x640", two_band_batch(11, 256)))
     return batches
 
 
@@ -209,6 +186,19 @@ def sw_bound(np, qlens, dlens, N, B, M, sm_clock_mhz, n_sm):
     ops_ms = ops / (n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6) * 1e3
     bytes_ms = (B * (M + N) + B * 8 + B * 12) / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rot_floor(qlens, dlens, M, N, band_rows, sm_clock_mhz, empty_ms):
+    """The wavefront kernel's modelled latency floor in ms (DEP_OPS_PER_CELL
+    above); band_rows is the kernel's (gt_sw_rot_band_rows)."""
+    R = max(1, -(-min(M, band_rows) // 32))
+    longest = 0
+    for ql, dl in zip(qlens.tolist(), dlens.tolist()):
+        rows, cols = min(ql, M), max(0, min(dl, N))
+        steps = sum(cols + min(32, -(-(rows - base) // R)) - 1 for base in range(0, rows, 32 * R))
+        longest = max(longest, steps)
+    cycles = longest * (SHFL_CYCLES + R * DEP_OPS_PER_CELL * DEP_OP_CYCLES)
+    return cycles / (sm_clock_mhz * 1e3) + empty_ms
 
 
 def kernel_phase(torch, np, dev):
@@ -244,16 +234,17 @@ def kernel_phase(torch, np, dev):
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
-def row_phase(torch, np, dev, rot_err, bound):
+def row_phase(torch, np, dev, rot_err, bound, floor):
     """sw_align_pallas (csrc/sw_row.cu) against sw_align_plain, exactly, on
     every batch; sw_align_rot is held to the plain version on the new
     shapes too. Times of both kernels and the plain version per shape."""
-    from graphtyper_tpu_torch.ops.sw_pallas import sw_align_pallas, sw_align_plain
+    from graphtyper_tpu_torch.ops.sw_pallas import MAX_M, MAX_N, sw_align_pallas, sw_align_plain
     from graphtyper_tpu_torch.ops.sw_rot import sw_align_rot
     from graphtyper_tpu_torch.tools.bench_sw import make_batch
+    from test_torch_sw_batches import planted_batch
 
     M, N = PATH_SHAPE
-    wide = _planted(np, 2025, PATH_BATCHES[-1], M, N)
+    wide = planted_batch(2025, PATH_BATCHES[-1], M, N)
     batches = _kernel_batches(np)
     batches.insert(1, ("bench_sw", make_batch()))
     for B in PATH_BATCHES:
@@ -263,7 +254,8 @@ def row_phase(torch, np, dev, rot_err, bound):
     for name, arrays in batches:
         t = _to_dev(torch, np, arrays, dev)
         want = sw_align_plain(*t)
-        row_err = max(row_err, _max_diff(np, sw_align_pallas(*t), want))
+        if arrays[2].shape[1] <= MAX_N and arrays[0].shape[1] <= MAX_M:
+            row_err = max(row_err, _max_diff(np, sw_align_pallas(*t), want))
         rot_err = max(rot_err, _max_diff(np, sw_align_rot(*t), want))
         if row_err or rot_err:
             raise AssertionError(f"{name}: a SW kernel disagrees with sw_align_plain: max |diff| "
@@ -275,6 +267,7 @@ def row_phase(torch, np, dev, rot_err, bound):
                 plain_ms=_time_ms(lambda: sw_align_plain(*t), 3),
                 cells=int(arrays[1].astype(np.int64).sum()) * arrays[2].shape[1],
                 bound=bound(arrays),
+                floor=floor(arrays),
             )
     print("row: sw_align_pallas == sw_align_plain (and sw_align_rot == sw_align_plain) on "
           + ", ".join(n for n, _ in batches) + "; CUDA-event ms per call (Gcell/s):", flush=True)
@@ -282,8 +275,75 @@ def row_phase(torch, np, dev, rot_err, bound):
         print(f"row:   {name}: sw_row {tm['row_ms']:.4f} ({tm['cells'] / tm['row_ms'] / 1e6:.3f}),"
               f" sw_rot {tm['rot_ms']:.4f} ({tm['cells'] / tm['rot_ms'] / 1e6:.3f}),"
               f" plain {tm['plain_ms']:.3f} ({tm['cells'] / tm['plain_ms'] / 1e6:.3f});"
-              f" bound {tm['bound'][0]:.4f} ({tm['bound'][1]})", flush=True)
+              f" bound {tm['bound'][0]:.4f} ({tm['bound'][1]}); sw_rot latency floor modelled"
+              f" from assumed latencies, not measured, {tm['floor']:.4f}", flush=True)
     return dict(max_abs_err=row_err, rot_err=rot_err, times=times)
+
+
+def rows_phase(torch, np, dev, band_rows):
+    """Where sw_rot.cu's time goes at the main path's batch sizes: CUDA-event
+    times of sw_align_rot on 1 and 40 pairs x 151 x 506 at R = 5 rows a lane
+    (M = 151) and at R = 8 (the same queries padded to one band of
+    band_rows, so fewer steps of more rows), and the host time of one call
+    of the wrapper (20 calls issued without waiting)."""
+    from graphtyper_tpu_torch.ops.sw_rot import sw_align_rot
+    from test_torch_sw_batches import planted_batch
+
+    M, N = PATH_SHAPE
+    wide = planted_batch(2025, 40, M, N)
+    out = {}
+    for B in (1, 40):
+        Q, ql, D, dl = (a[:B] for a in wide)
+        padded = np.full((B, band_rows), 5, np.uint8)
+        padded[:, :M] = Q
+        res = {}
+        for R, q in ((5, Q), (8, padded)):
+            t = _to_dev(torch, np, (q, ql, D, dl), dev)
+            res[f"R{R}_ms"] = _time_ms(lambda: sw_align_rot(*t))
+        t = _to_dev(torch, np, (Q, ql, D, dl), dev)
+        sw_align_rot(*t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sw_align_rot(*t)
+        res["wrapper_host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        out[B] = res
+    print("rows: sw_align_rot (CUDA events) at " + ", ".join(
+        f"{B} pairs x {M} x {N}: R=5 {v['R5_ms']:.4f} ms, R=8 {v['R8_ms']:.4f} ms, wrapper host"
+        f" {v['wrapper_host_ms']:.4f} ms a call" for B, v in out.items()), flush=True)
+    return out
+
+
+def realign_phase(torch, np, dev):
+    """The whole ops/sw.py align_batch call on a host timer (four copies
+    from pageable numpy to the card, the kernel, the stack and the copy
+    back, which waits for the card) at the main path's batch sizes, beside
+    the kernel's CUDA-event time on the same pairs."""
+    from graphtyper_tpu_torch.ops.sw import align_batch
+    from graphtyper_tpu_torch.ops.sw_rot import sw_align_plain, sw_align_rot
+    from test_torch_sw_batches import planted_batch
+
+    M, N = PATH_SHAPE
+    wide = planted_batch(2026, max(REALIGN_BATCHES), M, N)
+    out = {}
+    for B in REALIGN_BATCHES:
+        arrays = tuple(a[:B] for a in wide)
+        got = align_batch(*arrays, device=dev)
+        want = [x.numpy() for x in sw_align_plain(*_to_dev(torch, np, arrays, "cpu"))]
+        if any((g != w).any() for g, w in zip((got.score, got.database_begin, got.database_end), want)):
+            raise AssertionError(f"align_batch on {B} pairs differs from sw_align_plain on the CPU")
+        reps = 200
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            align_batch(*arrays, device=dev)
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        t = _to_dev(torch, np, arrays, dev)
+        out[B] = dict(host_ms=host_ms, kernel_ms=_time_ms(lambda: sw_align_rot(*t)))
+    print("realign: align_batch (host timer, mean of 200 calls) against its kernel (CUDA events) at "
+          + ", ".join(f"{B} pairs {v['host_ms']:.4f} ms vs {v['kernel_ms']:.4f} ms"
+                      for B, v in out.items()), flush=True)
+    return out
 
 
 def bench_phase(kernel_flag):
@@ -370,6 +430,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    sys.path.append(os.path.join(HERE, "tests"))  # test_torch_sw_batches
     import numpy as np
 
     def smi(query):
@@ -387,7 +448,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = kernels.library_path()
-    kernels.load()
+    band_rows = kernels.load().gt_sw_rot_band_rows()
     built = time.perf_counter() - t0
     print(f"kernels: built {os.path.relpath(lib, HERE)} in {built:.3f} s", flush=True)
     t0 = time.perf_counter()
@@ -396,12 +457,22 @@ def main() -> int:
           flush=True)
 
     dev = torch.device("cuda")
+    one = torch.zeros(1, device=dev)
+    empty_ms = _time_ms(lambda: one.add_(1))
+    print(f"empty launch: a one-element torch op takes {empty_ms:.4f} ms (CUDA events)", flush=True)
+
     def bound(arrays):
         Q, ql, D, dl = arrays
         return sw_bound(np, ql, dl, D.shape[1], len(ql), Q.shape[1], sm_clock, n_sm)
 
+    def floor(arrays):
+        Q, ql, D, dl = arrays
+        return rot_floor(ql, dl, Q.shape[1], D.shape[1], band_rows, sm_clock, empty_ms)
+
     rot = kernel_phase(torch, np, dev)
-    row = row_phase(torch, np, dev, rot["max_abs_err"], bound)
+    row = row_phase(torch, np, dev, rot["max_abs_err"], bound, floor)
+    rows = rows_phase(torch, np, dev, band_rows)
+    realign = realign_phase(torch, np, dev)
     row_launches = bench_phase("--row")["launches"].get("sw_row", 0)
     bench_phase("--rot")
     rot_launches = 0
@@ -420,7 +491,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name="sw_rot", source="graphtyper_tpu_torch/csrc/sw_rot.cu",
              replaces="graphtyper_tpu/ops/sw_rot.py:282", launches=rot_launches,
-             max_abs_err=row["rot_err"], ms=rot["ms"], plain_ms=rot["plain_ms"], **common),
+             max_abs_err=row["rot_err"], ms=rot["ms"], plain_ms=rot["plain_ms"], **common,
+             shapes=[dict(shape=name, ms=tm["rot_ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound"][0])
+                     for name, tm in row["times"].items()],
+             empty_launch_ms=empty_ms,
+             align_batch_ms={str(B): v["host_ms"] for B, v in realign.items()},
+             rows_ms={str(B): v for B, v in rows.items()}),
         dict(name="sw_row", source="graphtyper_tpu_torch/csrc/sw_row.cu",
              replaces="graphtyper_tpu/ops/sw_pallas.py:257", launches=row_launches,
              max_abs_err=row["max_abs_err"], ms=main["row_ms"], plain_ms=main["plain_ms"], **common),

@@ -138,7 +138,9 @@ def load(build_dir: Path | None = None) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path(build_dir)))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gt_sw_rot.restype = i32
-    lib.gt_sw_rot.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+    lib.gt_sw_rot.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+    lib.gt_sw_rot_band_rows.restype = i32
+    lib.gt_sw_rot_band_rows.argtypes = []
     lib.gt_sw_row.restype = i32
     lib.gt_sw_row.argtypes = [vp] * 5 + [i32] * 8 + [vp]
     _LIB = lib

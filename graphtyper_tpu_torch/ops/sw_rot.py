@@ -2,7 +2,8 @@
 
 `sw_align_rot` is the port of graphtyper_tpu/ops/sw_rot.py:230 (the Pallas
 kernel). On a CUDA tensor it launches the hand-written kernel
-csrc/sw_rot.cu; on a CPU tensor it runs `sw_align_plain`, the plain
+csrc/sw_rot.cu (one warp per pair, the query rows over the lanes in an
+anti-diagonal wavefront); on a CPU tensor it runs `sw_align_plain`, the plain
 PyTorch version of the host DP (graphtyper_tpu/ops/sw.py:164-267). Both
 return exactly the (score, database_begin, database_end) of the JAX
 package's kernel, under its tie rules (sw_rot.py:12-24).
@@ -198,13 +199,14 @@ def sw_align_rot(
     B, M = queries.shape
     N = databases.shape[1]
     with torch.cuda.device(dev):
-        qT = queries.t().contiguous()  # [M, B]: a warp reads 32 neighbouring codes
-        dT = databases.t().contiguous()  # [N, B]
         out = torch.empty((3, B), dtype=torch.int32, device=dev)
-        scratch = torch.empty((3, N, B), dtype=torch.int32, device=dev)
+        # the boundary row between bands of query rows, read and written once
+        # per band; a query of one band needs none
+        needs = M > lib.gt_sw_rot_band_rows()
+        scratch = torch.empty((3, B, N), dtype=torch.int32, device=dev) if needs else None
         rc = lib.gt_sw_rot(
-            qT.data_ptr(), q_lens.data_ptr(), dT.data_ptr(), d_lens.data_ptr(),
-            out.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), scratch[2].data_ptr(),
+            queries.data_ptr(), q_lens.data_ptr(), databases.data_ptr(), d_lens.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B, M, N, match, mismatch, gap_open, gap_extend, clip,
             torch.cuda.current_stream(dev).cuda_stream,
         )

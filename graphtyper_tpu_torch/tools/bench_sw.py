@@ -2,6 +2,7 @@
 tools/bench_sw.py).
 
     python -m graphtyper_tpu_torch.tools.bench_sw [--row|--rot] [--device cpu] [--pairs B]
+    python -m graphtyper_tpu_torch.tools.bench_sw --ptxas
 
 `--rot` (the default) runs `sw_align_rot` (csrc/sw_rot.cu), `--row` runs
 `sw_align_pallas` (csrc/sw_row.cu). The batch is the JAX tool's: B = 4096
@@ -10,6 +11,11 @@ copies of database windows, ragged lengths. The kernel's result must equal
 the host DP of the C++ engine (ops/sw.py align_batch_host) exactly; then
 CUDA events time many launches after a warm-up and the tool prints Gcell/s
 (Σ qlen × N DP cells over the time of one launch).
+
+`--ptxas` compiles csrc/*.cu once more with the library's flags and
+`-Xptxas -v` and prints the registers and spill bytes of every kernel
+instance (sw_rot_kernel<R> for R = 1-8, sw_row_kernel<C>); it needs nvcc,
+not a GPU.
 
 With `--device cpu` the plain PyTorch version runs on the CPU and only
 parity is checked: a CPU run gives no device time. Without a GPU, and
@@ -22,12 +28,15 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
-from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch import counters, kernels
 from graphtyper_tpu_torch.device import resolve_device
 from graphtyper_tpu_torch.ops.sw import align_batch_host
 from graphtyper_tpu_torch.ops.sw_pallas import sw_align_pallas
@@ -77,6 +86,35 @@ def time_ms(fn, reps: int | None = None) -> tuple[float, int]:
     return start.elapsed_time(stop) / reps, reps
 
 
+def ptxas_report() -> dict[str, dict[str, int]]:
+    """{kernel instance: {"registers": n, "spill_bytes": stores + loads}}
+    from nvcc -Xptxas -v on each CUDA source (objects discarded)."""
+    report, name = {}, None
+    with tempfile.TemporaryDirectory(prefix="ptxas_") as tmp:
+        for src in kernels.CUDA_SOURCES:
+            proc = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                   "-o", f"{tmp}/{src}.o", str(kernels.CSRC / src)],
+                                  capture_output=True, text=True, check=True)
+            for line in (proc.stdout + proc.stderr).splitlines():
+                entry = re.search(r"Compiling entry function '(\w+)'", line)
+                if entry:
+                    m = re.search(r"(sw_[a-z]+_kernel)IL[ij](\d+)E", entry.group(1))
+                    name = f"{m.group(1)}<{m.group(2)}>" if m else entry.group(1)
+                elif name and "spill stores" in line:
+                    report.setdefault(name, {})["spill_bytes"] = sum(
+                        int(x) for x in re.findall(r"(\d+) bytes spill", line))
+                elif name and re.search(r"Used \d+ registers", line):
+                    report.setdefault(name, {})["registers"] = int(
+                        re.search(r"Used (\d+) registers", line).group(1))
+                    name = None
+    return dict(sorted(report.items(), key=_natural))
+
+
+def _natural(item):
+    """Sort key of a report entry: sw_row_kernel<2> before sw_row_kernel<16>."""
+    return [int(x) if x.isdigit() else x for x in re.split(r"(\d+)", item[0])]
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m graphtyper_tpu_torch.tools.bench_sw",
                                  description=__doc__.splitlines()[0])
@@ -85,7 +123,14 @@ def main(argv: list[str] | None = None) -> int:
     which.add_argument("--rot", action="store_true", help="the rotated kernel (csrc/sw_rot.cu), the default")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain version, parity only)")
     ap.add_argument("--pairs", type=int, default=4096, help="batch size B (default 4096)")
+    ap.add_argument("--ptxas", action="store_true", help="registers and spills of every kernel (nvcc)")
     args = ap.parse_args(argv)
+    if args.ptxas:
+        report = ptxas_report()
+        for k, v in report.items():
+            print(f"{k}: {v.get('registers')} registers, {v.get('spill_bytes')} spill bytes", flush=True)
+        print(json.dumps({"ptxas": report}))
+        return 0
     dev = resolve_device(args.device)
     kern, name = (sw_align_pallas, "sw_row") if args.row else (sw_align_rot, "sw_rot")
 

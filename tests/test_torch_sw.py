@@ -13,6 +13,7 @@ from graphtyper_tpu.ops.sw_rot import sw_align_rot as ref_sw_align_rot
 from graphtyper_tpu_torch import config, counters
 from graphtyper_tpu_torch.ops.sw import align_batch
 from graphtyper_tpu_torch.ops.sw_rot import sw_align_plain, sw_align_rot
+from test_torch_sw_batches import e_tie_batch, insertion_batch, two_band_batch
 
 
 def _randomized(seed):
@@ -78,41 +79,35 @@ def _empty_lengths():
     return Q, qlens, D, dlens
 
 
-def e_tie_batch(seed, B=16, M=24, N=128):
-    """Pairs whose best alignment takes a deletion (E) from one of two
-    columns with equal prefix values T = H + (j + 1) * ge and different
-    starts, so the E scan's tie rule (the latest column wins) decides the
-    database begin. The database holds a homopolymer of L bases, an N code,
-    d bases the read deletes, then the read's tail; the read is the
-    homopolymer and the tail. Ending the homopolymer at its last base (score
-    L) or one column later over the N code (score L - 1) gives equal T.
-    Half the pairs end the homopolymer on the last column of a lane's strip
-    of the row-scan kernel (csrc/sw_row.cu), half inside one, and d reaches
-    up to three strips, so the in-strip pass, the shuffle scan and the
-    fix-up pass each meet a tie."""
+def gap_tie_batch(seed=19, B=192, M=40, N=80):
+    """Dense score ties with different starts: a two-letter alphabet with
+    15 % N codes (score 0), half the queries copies of a database window
+    with a deletion of 0-3 bases and, in half of those, an insertion of 1-3
+    bases. Ties of M against F and of E against H_tmp then decide the begin
+    of some pairs, and equal clip-end candidates in neighbouring rows (a
+    row of R = 2 rows a lane of the wavefront kernel, csrc/sw_rot.cu)
+    decide the end of others. The seed was chosen so that each of those
+    three rules, reversed, changes at least two pairs' outputs
+    (tests/test_torch_sw_rot_emulated.py)."""
     rng = np.random.default_rng(seed)
-    C = 1  # the row-scan kernel's strip width at this N
-    while 32 * C < N:
-        C *= 2
-    Q = np.full((B, M), 5, np.uint8)
-    D = rng.integers(0, 4, (B, N)).astype(np.uint8)
-    for b in range(B):
-        a = b % 4
-        L = int(rng.integers(M // 2 - 1, M // 2 + 2))
-        tail = M - L
-        d = int(rng.integers(1, max(2, min(tail - 2, L - 2, 3 * C + 2))))
-        span = L + 1 + d + tail
-        s = int(rng.integers(1, N - span + 1))
-        s += ((0 if b % 2 == 0 else C // 2) - (s + L)) % C
-        if s + span > N:
-            s -= C
-        D[b, s - 1] = (a + 1) % 4  # the homopolymer starts at s
-        D[b, s : s + L] = a
-        D[b, s + L] = 4
-        D[b, s + L + 1] = (a + 2) % 4
-        Q[b, :L] = a
-        Q[b, L:] = D[b, s + L + 1 + d : s + span]
-    return Q, np.full(B, M, np.int32), D, np.full(B, N, np.int32)
+    Q = rng.integers(0, 2, (B, M)).astype(np.uint8)
+    D = rng.integers(0, 2, (B, N)).astype(np.uint8)
+    Q[rng.random((B, M)) < 0.15] = 4
+    D[rng.random((B, N)) < 0.15] = 4
+    for b in range(0, B, 2):
+        st = rng.integers(0, N - M - 4)
+        hit = D[b, st : st + M + 4].copy()
+        cut = rng.integers(3, M - 3)
+        gap = rng.integers(0, 4)
+        hit = np.concatenate([hit[:cut], hit[cut + gap :]])[:M]
+        if rng.random() < 0.5:
+            ins = rng.integers(0, 2, rng.integers(1, 4)).astype(np.uint8)
+            hit = np.concatenate([hit[:cut], ins, hit[cut:]])[:M]
+        Q[b] = hit
+        Q[b, rng.integers(0, M, 2)] = rng.integers(0, 5, 2)
+    qlens = rng.integers(M // 2, M + 1, B).astype(np.int32)
+    dlens = rng.integers(N // 2, N + 1, B).astype(np.int32)
+    return Q, qlens, D, dlens
 
 
 CASES = {
@@ -123,6 +118,7 @@ CASES = {
     "length_edges": _length_edges,
     "empty_lengths": _empty_lengths,
     "e_ties": lambda: e_tie_batch(3),
+    "gap_ties": gap_tie_batch,
 }
 
 
@@ -154,6 +150,28 @@ def test_plain_matches_host_dp(case):
     np.testing.assert_array_equal(host.score, s)
     np.testing.assert_array_equal(host.database_begin[has_q], bg[has_q])
     np.testing.assert_array_equal(host.database_end[has_q], en[has_q])
+
+
+LONG_CASES = {  # a window wider than 512 columns; queries of two 256-row bands (csrc/sw_rot.cu)
+    "insertion_30bp_N576": lambda: insertion_batch(3, 4),
+    "two_bands_300x640": lambda: two_band_batch(4, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_plain_matches_pallas_interpret_long(case):
+    """The long shapes against the JAX kernel in interpret mode and the host
+    DP. The JAX kernel runs with r_block=4, col_unroll=2: its result does not
+    depend on its blocking (tests/ops/test_sw_rot.py:83), and on the CPU this
+    blocking interprets the two-band case in about 19 s against about 59 s
+    at the defaults. Its batch is padded to 1024 pairs whatever B is."""
+    Q, qlens, D, dlens = LONG_CASES[case]()
+    want = ref_sw_align_rot(Q, qlens, D, dlens, interpret=True, r_block=4, col_unroll=2)
+    got = _plain(Q, qlens, D, dlens)
+    host = ref_align_batch(Q, qlens, D, dlens, device=False)
+    for w, g, h in zip(want, got, (host.score, host.database_begin, host.database_end)):
+        np.testing.assert_array_equal(np.asarray(w), g)
+        np.testing.assert_array_equal(h, g)
 
 
 def test_cpu_tensor_routes_to_plain():

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_sw import CASES, e_tie_batch
+from test_torch_sw import CASES
+from test_torch_sw_batches import e_tie_batch, insertion_batch, two_band_batch
 
 pytestmark = pytest.mark.gpu
 
@@ -124,15 +125,38 @@ def test_kernel_e_ties(cuda, kernel, M, N):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("kernel", ["sw_rot", "sw_row"])
 @pytest.mark.parametrize("pairs", [1, 6, 40])
-def test_row_kernel_at_main_path_batches(cuda, pairs):
-    """The main path's batch sizes at 151 x 506: against the plain version
-    and the host DP."""
+def test_row_kernel_at_main_path_batches(cuda, kernel, pairs):
+    """The main path's batch sizes at 151 x 506, for both kernels: against
+    the plain version and the host DP."""
     from graphtyper_tpu_torch.ops.sw import align_batch_host
-    from graphtyper_tpu_torch.ops.sw_pallas import sw_align_pallas, sw_align_plain
+    from graphtyper_tpu_torch.ops.sw_rot import sw_align_plain
 
     Q, qlens, D, dlens = (a[:pairs] for a in _wide(2, B=64, N=506))
-    got = _run(sw_align_pallas, cuda, Q, qlens, D, dlens)
+    got = _run(_kernels()[kernel], cuda, Q, qlens, D, dlens)
+    host = align_batch_host(Q, qlens, D, dlens)
+    want = _run(sw_align_plain, cuda, Q, qlens, D, dlens)
+    for g, w, h in zip(got, want, (host.score, host.database_begin, host.database_end)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, h)
+
+
+@pytest.mark.parametrize("case,pairs", [("insertion_N576", 40), ("insertion_N576", 512),
+                                        ("two_bands_300x640", 8), ("two_bands_300x640", 256)])
+def test_rot_kernel_long_shapes(cuda, case, pairs):
+    """sw_rot.cu on a window wider than 512 columns (a 30 bp insertion) and
+    on queries of two 256-row bands, which go through the band scratch:
+    against the plain version and the host DP."""
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.ops.sw import align_batch_host
+    from graphtyper_tpu_torch.ops.sw_rot import sw_align_plain, sw_align_rot
+
+    make = insertion_batch if case.startswith("insertion") else two_band_batch
+    Q, qlens, D, dlens = make(11, pairs)
+    before = counters.COUNTS["sw_rot"]
+    got = _run(sw_align_rot, cuda, Q, qlens, D, dlens)
+    assert counters.COUNTS["sw_rot"] == before + 1
     host = align_batch_host(Q, qlens, D, dlens)
     want = _run(sw_align_plain, cuda, Q, qlens, D, dlens)
     for g, w, h in zip(got, want, (host.score, host.database_begin, host.database_end)):

@@ -18,7 +18,7 @@ from graphtyper_tpu.ops.sw_pallas import sw_align_pallas as ref_sw_align_pallas
 from graphtyper_tpu_torch import counters
 from graphtyper_tpu_torch.ops import sw_rot
 from graphtyper_tpu_torch.ops.sw_pallas import sw_align_pallas, sw_align_plain
-from test_torch_sw import e_tie_batch
+from test_torch_sw_batches import e_tie_batch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # one shape for every batch, so the interpret-mode kernel compiles once

@@ -21,7 +21,8 @@ from graphtyper_tpu_torch.constants import (
     SCORE_MISMATCH,
 )
 from graphtyper_tpu_torch.ops.sw_rot import sw_align_plain
-from test_torch_sw import CASES, e_tie_batch
+from test_torch_sw import CASES
+from test_torch_sw_batches import e_tie_batch
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "graphtyper_tpu_torch" / "csrc" / "sw_row.cu"
 LAUNCHER = "template <int C>\nint launch("
