@@ -34,12 +34,28 @@ Phases, one line each, none of them caught:
               region loop of four 50 kb units over 4 region workers), and
               50 kb, 10x, 4 samples, error rate 0.02, whose VCF changes when
               the SW results are discarded, so a wrong kernel result shows
-The SW batches come from tests/test_torch_sw_batches.py. The tests hold
+  5. align    the call iterations' device-resident align stage on bench.py's
+              shape (200 kb, 30x, 4 samples, error rate 0.001): the CLI on
+              cuda with GT_DEVICE_ALIGN=on, off, and on with device_seed on,
+              and on --device cpu with on in a subprocess (one md5); then in
+              process on the region as one pool: call_pool in verify mode (0
+              divergences, the clean share), the streaming caller in batches
+              of 2^16 records in verify and on (its host run's state), and
+              the warm call-iteration wall off, on, on, off; the kernels
+              launched, no plain version on the card's runs
+  6. verdict  device_align.cu against verdicts_plain, exactly, and seed
+     seed     seed_probe.cu against probe_bits_plain, on the tests'
+              adversarial batch, the align pool's rows and 2^19 rows drawn
+              from them; CUDA-event times of both and the bound
+The SW batches come from tests/test_torch_sw_batches.py, the verdict and
+seed batches from tests/test_torch_device_align_batches.py. The tests hold
 the port's CPU path to the JAX package byte for byte
-(tests/test_torch_slice.py, tests/test_torch_sw.py).
+(tests/test_torch_slice.py, tests/test_torch_sw.py,
+tests/test_torch_device_align.py, tests/test_torch_seed_probe.py).
 Then one JSON line of the kernels (launches on their paths, error, times,
 bound; for sw_rot also its times and bounds per shape, the empty launch,
-the align_batch times and the R = 5 / R = 8 times), and the last line
+the align_batch times and the R = 5 / R = 8 times; for device_align and
+seed_probe the times at 2^19 rows and per input), and the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a GPU, and outside a checkout of the repository.
 """
@@ -99,6 +115,29 @@ DEP_OPS_PER_CELL = 4
 DEP_OP_CYCLES = 4
 SHFL_CYCLES = 30
 REALIGN_BATCHES = (1, 6, 40)  # align_batch timed whole at the main path's batch sizes
+# bench.py's shape and error rate: at 0.001 most rows are clean (every
+# 32-mer exact), so the verdict kernel decides most of the call iterations
+ALIGN = ("align", dict(region_length=200_000, coverage=30.0, n_samples=4, read_length=151,
+                       error_rate=0.001, seed=3, out_format="bam"))
+STREAM_BATCH = 1 << 16  # records a streaming batch: three or more batches on the align cohort
+KERNEL_ROWS = 1 << 19  # a streaming batch stages up to 2 * 2^18 + 16 rows, padded to 2^19
+# int32 operations of the verdict function on its inputs, counted from
+# graphtyper_tpu/ops/device_align.py:107-258 for the work a row's data
+# needs: per row, nk_r, the tail length, the verdict's ands and the meta
+# pack (:136-137, :181-182, :228-248); per kmer the read has (at least
+# kmer 0, whose label gives the start): the bucket index, the found test,
+# the span bounds, okcap, kmer_ok and the chain link (:142, :146-151,
+# :168-177); per halving of a search: the midpoint, its clamp, the 64-bit
+# compare (three ops) and two selects (:96-103); per label gathered
+# (min(size, 6)): the span compare, the variant test and the slot pack
+# (:154-166, :216-226); per row with a tail: the node clamp, offset,
+# in-node and fit tests and the budget (:193-213); per tail base: the
+# index add, the mismatch test (four ops) and the tag test (:199-206)
+VERDICT_OPS = dict(row=25, kmer=20, step=7, label=8, node=12, tail_base=6)
+# per probe of a valid kmer (graphtyper_tpu/ops/seed_probe.py:104-110):
+# two xors, two multiplies and an add for the hash, the shift to the index,
+# the word index and bit shift, the bit's and, and its pack into the word
+SEED_OPS_PER_PROBE = 10
 
 
 def _md5(paths):
@@ -420,6 +459,281 @@ def slice_phase(work, name, sim_kw):
     return seen
 
 
+def _state_md5(sites):
+    """md5 of a scorer's site state (the fields tests/test_torch_site_scoring.py
+    _site_state compares)."""
+    h = hashlib.md5()
+    for s in sites:
+        vs = s.var_stats
+        h.update(repr((
+            s.log_scores.tolist(), s.gt_coverages.tolist(), vs.clipped_reads, vs.mapq_squared,
+            [(p.clipped_bp, p.mapq_squared, p.mismatches, p.score_diff) for p in vs.per_allele],
+            [(r.r1_forward, r.r2_forward, r.r1_reverse, r.r2_reverse) for r in vs.read_strand],
+            [(x.max_log_score, x.ambiguous_depth, x.ambiguous_depth_alt, x.alt_proper_pair_depth)
+             for x in s.hap_samples],
+        )).encode())
+    return h.hexdigest()
+
+
+def _cli_in_process(argv, device_align, device_seed="auto"):
+    """The port's CLI in this process, with GT_DEVICE_ALIGN=device_align in
+    the environment of the region workers it spawns and Options.device_seed
+    set; returns (sorted output paths, counters, wall s)."""
+    from dataclasses import replace
+
+    from graphtyper_tpu_torch import cli, counters
+    from graphtyper_tpu_torch.config import set_options
+    from graphtyper_tpu_torch.pipeline.genotype import shutdown_region_pool
+
+    args = cli.build_parser().parse_args(argv)
+    set_options(replace(cli._options_from_args(args), device_seed=device_seed))
+    os.environ["GT_DEVICE_ALIGN"] = device_align
+    printed = io.StringIO()
+    counters.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = args.fn(args)
+    wall = time.perf_counter() - t0
+    seen = counters.totals()
+    shutdown_region_pool()  # the next run's workers see its environment
+    if rc != 0:
+        raise RuntimeError(f"port genotype {argv[-1]} device_align={device_align} exited {rc}")
+    return sorted(printed.getvalue().split()), seen, wall
+
+
+def _no_plain(seen, where):
+    plain = {k: v for k, v in seen.items() if k.endswith("_plain")}
+    if plain:
+        raise AssertionError(f"{where}: plain versions ran on the card's path: {plain}")
+
+
+def align_phase(torch, np, work, dev):
+    """The call iterations' device-resident align stage on the align cohort:
+    the CLI on cuda with GT_DEVICE_ALIGN=on and off and on --device cpu with
+    on (equal md5), with device_seed on as well, then in process on the
+    whole region as one pool: call_pool in verify mode (0 divergences),
+    the streaming caller in verify and on against its host run, and the
+    warm call-iteration wall off, on, on, off. Returns the path's kernel
+    launches and the cohort's graph, index and pool rows for the kernel
+    phases."""
+    from dataclasses import replace
+
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.config import DEFAULT_OPTIONS, set_options
+    from graphtyper_tpu_torch.graph.build import construct_graph
+    from graphtyper_tpu_torch.graph.coords import GenomicRegion
+    from graphtyper_tpu_torch.index.build import index_graph
+    from graphtyper_tpu_torch.io.native import get_lib
+    from graphtyper_tpu_torch.pipeline import native_caller
+    from graphtyper_tpu_torch.pipeline.caller import call_pool
+    from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
+    from graphtyper_tpu_torch.typer.native_align import NativeAligner
+
+    name, sim_kw = ALIGN
+    cfg = SimConfig(**sim_kw)
+    sim = simulate_cohort(os.path.join(work, name, "sim"), cfg)
+    spec = f"{cfg.chrom}:1-{cfg.region_length}"
+    launches = {"device_align": 0, "seed_probe": 0}
+
+    # 1. the CLI: on, off, --device cpu with on; and device_seed on
+    md5s, walls = {}, {}
+    for run, mode, seed in (("cuda on", "on", "auto"), ("cuda off", "off", "auto"),
+                            ("cuda on + device_seed", "on", "on")):
+        outs, seen, walls[run] = _cli_in_process(
+            _genotype_argv(sim, cfg, os.path.join(work, name, run.replace(" ", "_")), dev.type), mode, seed)
+        md5s[run] = _md5(outs)
+        _no_plain(seen, run)
+        if mode == "on" and seen.get("device_align", 0) <= 0:
+            raise AssertionError(f"{run}: the verdict kernel was not launched: {seen}")
+        if seed == "on" and seen.get("seed_probe", 0) <= 0:
+            raise AssertionError(f"{run}: the seed-probe kernel was not launched: {seen}")
+        for k in launches:
+            launches[k] += seen.get(k, 0)
+        print(f"align: CLI {run}: {sim.n_reads} reads in {walls[run]:.3f} s, md5 {md5s[run]},"
+              f" counters {json.dumps(seen, sort_keys=True)}", flush=True)
+    os.environ.pop("GT_DEVICE_ALIGN")
+    set_options(DEFAULT_OPTIONS)
+    argv = _genotype_argv(sim, cfg, os.path.join(work, name, "cpu_on"), "cpu")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", GT_DEVICE_ALIGN="on")
+    proc = subprocess.run([sys.executable, "-m", "graphtyper_tpu_torch.cli", *argv], cwd=HERE,
+                          capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"port genotype on cpu exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    md5s["cpu on"] = _md5(proc.stdout.split())
+    if len(set(md5s.values())) != 1:
+        raise AssertionError(f"align: the VCFs differ: {md5s}")
+
+    # 2. in process, the whole region as one pool
+    graph = construct_graph(sim.fasta, sim.vcf, spec, use_index=True)
+    index = index_graph(graph)
+    region = GenomicRegion.parse(spec)
+
+    def pooled(mode, stream=False):
+        set_options(replace(DEFAULT_OPTIONS, device_align=mode))
+        native_caller.device_align_stats()  # reset the engine's counts
+        before = counters.COUNTS["device_align"]
+        t0 = time.perf_counter()
+        if stream:
+            _, scorer, *_ = native_caller.run_native_call_pool_stream(
+                graph, index, sim.sams, region, dev, batch_records=STREAM_BATCH)
+            scorer.finalize()
+        else:
+            scorer = call_pool(graph, index, sim.sams, dev, region=region, is_writing_hap=True).scorer
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        set_options(DEFAULT_OPTIONS)
+        return (_state_md5(scorer.sites), native_caller.device_align_stats(),
+                counters.COUNTS["device_align"] - before, wall)
+
+    counters.reset()
+    off = pooled("off")  # also warms the prepared pool
+    verify = pooled("verify")
+    clean, fallback, diverged = verify[1]
+    if diverged or clean <= 0 or verify[0] != off[0]:
+        raise AssertionError(f"align: verify mode: (clean, fallback, divergences) {verify[1]}, "
+                             f"state {verify[0]} vs off {off[0]}")
+    stream = {mode: pooled(mode, stream=True) for mode in ("off", "verify", "on")}
+    for mode in ("verify", "on"):
+        st, (s_clean, _, s_div), n, _ = stream[mode]
+        if st != stream["off"][0] or s_div or s_clean <= 0 or n < 3:
+            raise AssertionError(f"align: streaming {mode}: state {st} vs {stream['off'][0]}, stats "
+                                 f"{stream[mode][1]}, {n} launches")
+    wall = {}
+    for mode in ("off", "on", "on", "off"):
+        st, _, _, w = pooled(mode)
+        if st != off[0]:
+            raise AssertionError(f"align: call_pool {mode}: state {st} vs off {off[0]}")
+        wall.setdefault(mode, []).append(w)
+    seen = counters.totals()
+    _no_plain(seen, "in-process pools")
+    launches["device_align"] += seen.get("device_align", 0)
+    print(f"align: call_pool verify: clean {clean}, fallback {fallback}, divergences {diverged},"
+          f" clean share {clean / (clean + fallback):.4f}; streaming (batches of {STREAM_BATCH}"
+          f" records) " + ", ".join(f"{m}: stats {v[1]}, {v[2]} launches" for m, v in stream.items())
+          + f", state == host stream; warm call-iteration wall (call_pool, one 200 kb pool) off"
+          f" {wall['off'][0]:.4f} s, on {wall['on'][0]:.4f} s, on {wall['on'][1]:.4f} s, off"
+          f" {wall['off'][1]:.4f} s; counters {json.dumps(seen, sort_keys=True)}", flush=True)
+
+    lib = get_lib()
+    entry = native_caller._get_prep(lib, sim.sams, region, 3840, False)
+    rows = (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+    return dict(launches=launches, na=NativeAligner(graph, index), keys=np.asarray(index.keys, np.uint64),
+                rows=rows, md5=md5s["cuda on"], clean_share=clean / (clean + fallback),
+                walls=wall, cli_walls=walls)
+
+
+def _kernel_inputs(np, align):
+    """(name, rows) inputs of the verdict and seed-probe phases: the tests'
+    adversarial batch against its synthetic index, the align cohort's pool
+    rows against its index, and KERNEL_ROWS rows drawn from those."""
+    import types
+
+    from test_torch_device_align_batches import sample_rows, synthetic_index, synthetic_rows
+
+    idx = synthetic_index(0)
+    synth = types.SimpleNamespace(**idx)
+    rows = align["rows"]
+    return [("adversarial", synth, idx["keys"], synthetic_rows(idx, 4, seed=4)),
+            ("align_pool", align["na"], align["keys"], rows),
+            (f"{KERNEL_ROWS}_rows", align["na"], align["keys"], sample_rows(rows, KERNEL_ROWS))]
+
+
+def verdict_bound(np, na, dal, rows, S, sm_clock_mhz, n_sm):
+    """(ms, bound_by) of the verdict function on these rows (S of them after
+    padding): the bytes (each row input and the tables read once, 36 bytes a
+    row out) at the HBM rate, against VERDICT_OPS on the int32 lanes."""
+    hi, lo, valid, tails, lens = rows
+    n, nk = hi.shape
+    pad = S - n  # padded rows: length 0, one kmer of key 0
+    nk_r = np.minimum(np.where(lens >= 32, 1 + (lens.astype(np.int64) - 32) // 31, 0), nk)
+    tail = np.maximum(lens.astype(np.int64) - 1 - 31 * nk_r, 0)
+    keys = np.asarray(na.keys, np.uint64)
+    offsets = np.asarray(na.offsets, np.int64)
+    q = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    size = np.where(keys[pos] == q, offsets[pos + 1] - offsets[pos], 0)
+    kmers = np.arange(nk)[None, :] < np.maximum(nk_r, 1)[:, None]
+    c = VERDICT_OPS
+    ops = (S * c["row"] + (int(kmers.sum()) + pad) * (c["kmer"] + c["step"] * dal.key_steps)
+           + int((np.minimum(size, 6) * kmers).sum()) * c["label"]
+           + int((tail > 0).sum()) * (c["node"] + c["step"] * dal.ref_steps) + int(tail.sum()) * c["tail_base"])
+    ops_ms = ops / (n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6) * 1e3
+    bytes_ms = (S * (9 * nk + 32 + 4 + 36) + dal.table_bytes()) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def seed_bound(np, valid, S, prow, bitset_bytes, sm_clock_mhz, n_sm):
+    """(ms, bound_by) of the seed-probe function: SEED_OPS_PER_PROBE on each
+    of the 97 probes of every valid kmer, against the bytes (rows in, words
+    out, the bitset read once)."""
+    nk = valid.shape[1]
+    ops = SEED_OPS_PER_PROBE * 97 * int((valid != 0).sum())
+    ops_ms = ops / (n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6) * 1e3
+    bytes_ms = (S * (9 * nk + 4 * prow) + bitset_bytes) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _exact(np, name, got, want):
+    g, w = got.cpu().numpy().astype(np.int64), want.cpu().numpy().astype(np.int64)
+    err = int(np.abs(g - w).max(initial=0))
+    if g.shape != w.shape or err:
+        raise AssertionError(f"{name}: the kernel disagrees with its plain version: max |diff| {err}")
+    return err
+
+
+def verdict_phase(torch, np, dev, inputs, sm_clock, n_sm):
+    """device_align.cu against verdicts_plain on the card, exactly, and
+    CUDA-event times of both, with the bound, on each input."""
+    from graphtyper_tpu_torch.ops.device_align import DeviceAligner, stage_tails, verdicts_plain
+    from graphtyper_tpu_torch.ops.seed_probe import stage_kmers
+
+    out = {}
+    for name, na, _, rows in inputs:
+        dal = DeviceAligner(na, dev)
+        kmers = stage_kmers(*rows[:3], dev)
+        tails = stage_tails(*rows[3:], dev)
+        nk, S = rows[0].shape[1], kmers[0].shape[0]
+        steps = dict(key_steps=dal.key_steps, ref_steps=dal.ref_steps)
+        got = dal.launch(kmers, *tails, nk)
+        err = _exact(np, f"device_align on {name}", got, verdicts_plain(*kmers, *tails, *dal.tables, **steps))
+        out[name] = dict(rows=len(rows[-1]), S=S, nk=nk, max_abs_err=err,
+                         ms=_time_ms(lambda: dal.launch(kmers, *tails, nk)),
+                         plain_ms=_time_ms(lambda: verdicts_plain(*kmers, *tails, *dal.tables, **steps), 3),
+                         bound=verdict_bound(np, na, dal, rows, S, sm_clock, n_sm),
+                         key_steps=dal.key_steps, ref_steps=dal.ref_steps,
+                         clean=float((got[: len(rows[-1]), 0] & 1).float().mean()))
+    print("verdict: device_align == verdicts_plain (max |diff| 0); CUDA-event ms: " + "; ".join(
+        f"{n}: {v['rows']} rows (S {v['S']}, nk {v['nk']}, key_steps {v['key_steps']}, ref_steps"
+        f" {v['ref_steps']}, clean {v['clean']:.4f}) kernel {v['ms']:.4f}, plain {v['plain_ms']:.3f},"
+        f" bound {v['bound'][0]:.4f} ({v['bound'][1]})" for n, v in out.items()), flush=True)
+    return out
+
+
+def seed_phase(torch, np, dev, inputs, sm_clock, n_sm):
+    """seed_probe.cu against probe_bits_plain on the card, exactly, and
+    CUDA-event times of both, with the bound, on each input (the bitset of
+    each input's index at the pipeline's size)."""
+    from graphtyper_tpu_torch.ops.seed_probe import DeviceSeeder, prow_for, probe_bits, probe_bits_plain, stage_kmers
+
+    out = {}
+    for name, _, keys, rows in inputs:
+        seeder = DeviceSeeder(keys, dev)
+        hi, lo, valid = stage_kmers(*rows[:3], dev)
+        args = (hi, lo, valid, seeder.bitset, seeder.bits)
+        S, nk = hi.shape
+        err = _exact(np, f"seed_probe on {name}", probe_bits(*args), probe_bits_plain(*args))
+        bitset_bytes = seeder.bitset.numel() * 4
+        out[name] = dict(rows=len(rows[0]), S=S, nk=nk, bits=seeder.bits, max_abs_err=err,
+                         ms=_time_ms(lambda: probe_bits(*args)),
+                         plain_ms=_time_ms(lambda: probe_bits_plain(*args), 3),
+                         bound=seed_bound(np, rows[2], S, prow_for(nk), bitset_bytes, sm_clock, n_sm))
+    print("seed: seed_probe == probe_bits_plain (max |diff| 0); CUDA-event ms: " + "; ".join(
+        f"{n}: {v['rows']} rows (S {v['S']}, nk {v['nk']}, {v['bits']} bits) kernel {v['ms']:.4f},"
+        f" plain {v['plain_ms']:.3f}, bound {v['bound'][0]:.4f} ({v['bound'][1]})"
+        for n, v in out.items()), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -479,11 +793,28 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         for name, sim_kw in SLICES:
             rot_launches += slice_phase(work, name, sim_kw)["sw_rot"]
+        align = align_phase(torch, np, work, dev)
     if row_launches <= 0:
         raise AssertionError("tools.bench_sw --row did not launch the row kernel")
+    inputs = _kernel_inputs(np, align)
+    verdict = verdict_phase(torch, np, dev, inputs, sm_clock, n_sm)
+    seed = seed_phase(torch, np, dev, inputs, sm_clock, n_sm)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "graphtyper_tpu"))
     if loaded:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
+
+    def gather_entry(name, source, replaces, times):
+        """A kernels-line entry timed at KERNEL_ROWS rows, with every input's
+        time and bound under `shapes`."""
+        big = times[f"{KERNEL_ROWS}_rows"]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=align["launches"][name],
+                    max_abs_err=max(v["max_abs_err"] for v in times.values()), ms=big["ms"],
+                    plain_ms=big["plain_ms"], bound_ms=big["bound"][0], bound_by=big["bound"][1],
+                    library_ms=None,
+                    shapes=[dict(shape=f"{n}: {v['rows']} rows, S {v['S']}, nk {v['nk']}", ms=v["ms"],
+                                 plain_ms=v["plain_ms"], bound_ms=v["bound"][0], bound_by=v["bound"][1])
+                            for n, v in times.items()])
 
     main = row["times"]["main"]
     bound_ms, bound_by = main["bound"]
@@ -500,6 +831,10 @@ def main() -> int:
         dict(name="sw_row", source="graphtyper_tpu_torch/csrc/sw_row.cu",
              replaces="graphtyper_tpu/ops/sw_pallas.py:257", launches=row_launches,
              max_abs_err=row["max_abs_err"], ms=main["row_ms"], plain_ms=main["plain_ms"], **common),
+        gather_entry("device_align", "graphtyper_tpu_torch/csrc/device_align.cu",
+                     "graphtyper_tpu/ops/device_align.py:107", verdict),
+        gather_entry("seed_probe", "graphtyper_tpu_torch/csrc/seed_probe.cu",
+                     "graphtyper_tpu/ops/seed_probe.py:92", seed),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -16,8 +16,14 @@ Device options of `graphtyper_tpu_torch.config.Options`, as the port reads
 them: `device_sw` and `device_discovery` take "auto" and "on" as one value,
 the work always going to the device it is given, whatever its size; "off"
 keeps the host path. `device_scoring="off"` is refused: the port scores on
-its device only. `device_seed` and `device_align` raise
-NotImplementedError when turned on (not ported yet).
+its device only. `device_seed="on"` runs the call iterations' 97-probe
+seeding on the device (ops/seed_probe.py, csrc/seed_probe.cu), and
+`device_align="on"` or `"verify"` (or the GT_DEVICE_ALIGN environment
+variable) runs their verdict kernel (ops/device_align.py,
+csrc/device_align.cu), in memory and in the streaming caller; both take
+non-SV pools only, and "auto" resolves both to off, as in the JAX package.
+On `--device cpu` they run the plain PyTorch versions. A kernel that fails
+to build or launch raises.
 
 Importing the package makes sure the C++ engine's runtime can load
 (host.py).

@@ -91,24 +91,27 @@ class Options:
     # by default; "off" keeps the reference-shaped per-read loop.
     device_scoring: str = "on"
     # device k-mer seeding (ops/seed_probe.py): the 97-probe exact+Hamming-1
-    # index probing per kmer runs as a batched TPU pass, with the host
-    # verifying only the surviving candidates — bit-identical to host probing
-    # (the membership bitset has no false negatives). Default "auto" = off:
-    # the host seed filter (native gt_seed_filter_build — the Hamming-1
-    # expansion flipped to the build side) probes ~2 bitset words per kmer
-    # in L2/L3, which measures faster than the device kernel's 25M-probe
-    # HBM gather plus its D2H round-trip over the interconnect on every
-    # tested workload. "on" forces the device pass (parity tests).
+    # index probing per kmer runs as one launch of csrc/seed_probe.cu per
+    # pool and call iteration on the pool's device (the plain PyTorch
+    # version on "cpu"), with the host verifying only the surviving
+    # candidates — bit-identical to host probing (the membership bitset has
+    # no false negatives). Non-SV pools of the in-memory caller only.
+    # Default "auto" = off, as in the JAX package: the host seed filter
+    # (native gt_seed_filter_build — the Hamming-1 expansion flipped to the
+    # build side) probes ~2 bitset words per kmer in L2/L3. "on" runs the
+    # device pass.
     device_seed: str = "auto"
     # device-resident alignment (ops/device_align.py): the call iteration's
-    # align stage runs as ONE jitted dispatch per read batch against the
-    # HBM-resident k-mer index + reference arena; rows resolved "clean"
-    # (single exact-seed chain, in-node tail — the parity-provable tier)
-    # synthesize their path set in C++ with seed+lattice+walk skipped, the
-    # rest fall back to the host aligner. "verify" runs BOTH on clean rows
-    # and asserts byte equality (gt_device_align_stats). "auto" resolves per
-    # environment (off over a high-latency tunnel unless forced); env
-    # GT_DEVICE_ALIGN overrides.
+    # align stage runs as one launch of csrc/device_align.cu per pool (in
+    # memory) or per read batch (streaming, one batch ahead of the host)
+    # against the device-resident k-mer index + reference arena; rows
+    # resolved "clean" (single exact-seed chain, in-node tail — the
+    # parity-provable tier) synthesize their path set in C++ with
+    # seed+lattice+walk skipped, the other rows go to the host aligner.
+    # "verify" runs BOTH on clean rows and counts divergences
+    # (gt_device_align_stats). Non-SV pools only. "auto" resolves to off, as
+    # in the JAX package; env GT_DEVICE_ALIGN overrides. A kernel that fails
+    # to build or launch raises; nothing falls back to the host.
     device_align: str = "auto"
     # discovery first-pass aggregation routing (ops/discovery_pileup.py):
     # "auto" runs the split extract->aggregate->gates path with the row-count

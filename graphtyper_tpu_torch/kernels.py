@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: build outputs; listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parent.parent / "kernel_build"
 
-CUDA_SOURCES = ("sw_rot.cu", "sw_row.cu")
+CUDA_SOURCES = ("sw_rot.cu", "sw_row.cu", "device_align.cu", "seed_probe.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -143,5 +143,9 @@ def load(build_dir: Path | None = None) -> ctypes.CDLL:
     lib.gt_sw_rot_band_rows.argtypes = []
     lib.gt_sw_row.restype = i32
     lib.gt_sw_row.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+    lib.gt_device_align.restype = i32
+    lib.gt_device_align.argtypes = [vp] * 17 + [i32] * 8 + [vp]
+    lib.gt_seed_probe.restype = i32
+    lib.gt_seed_probe.argtypes = [vp] * 5 + [i32] * 3 + [vp]
     _LIB = lib
     return lib

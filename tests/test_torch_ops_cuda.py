@@ -1,8 +1,12 @@
 """The port's torch device ops on the card against the same ops on the CPU
 (which tests/test_torch_site_scoring.py and test_torch_discovery_pileup.py
 hold to the JAX package): scoring `apply_tier` and the pileup's
-`segment_counters`. Integer outputs, tolerance 0. Skips without a GPU; run
-on the card with  python -m pytest tests/test_torch_ops_cuda.py -q
+`segment_counters`; and the verdict and seed-probe kernels
+(csrc/device_align.cu, csrc/seed_probe.cu) against their plain PyTorch
+versions on the card, on the synthetic adversarial batches and on the
+engine's rows of a small cohort. Integer outputs, tolerance 0. Skips
+without a GPU; run on the card with
+  python -m pytest tests/test_torch_ops_cuda.py -q
 """
 
 import numpy as np
@@ -41,3 +45,101 @@ def test_segment_counters_cuda_matches_cpu(cuda):
     mat = torch.from_numpy(np.stack([r[k].astype(np.int64) for k in (
         "r_ev", "r_dhq", "r_dlq", "r_bits", "r_mapq", "r_dist")]))
     assert torch.equal(segment_counters(mat.to(cuda), 7000).cpu(), segment_counters(mat, 7000))
+
+
+# ---- the verdict and seed-probe kernels against their plain versions ----
+
+
+@pytest.fixture(scope="module")
+def synthetic():
+    from test_torch_device_align_batches import synthetic_index
+
+    return synthetic_index(0)
+
+
+@pytest.fixture(scope="module")
+def engine_rows(tmp_path_factory):
+    """A small cohort's graph and index, built by the port, and the engine's
+    rows of its pool (gt_prep_fetch_kmers, gt_prep_fetch_tails)."""
+    from graphtyper_tpu_torch.graph.build import construct_graph
+    from graphtyper_tpu_torch.graph.coords import GenomicRegion
+    from graphtyper_tpu_torch.index.build import index_graph
+    from graphtyper_tpu_torch.io.native import get_lib
+    from graphtyper_tpu_torch.pipeline import native_caller
+    from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
+    from graphtyper_tpu_torch.typer.native_align import NativeAligner
+
+    cfg = SimConfig(region_length=9000, coverage=22.0, n_samples=2, seed=41, error_rate=0.001,
+                    out_format="bam")
+    sim = simulate_cohort(str(tmp_path_factory.mktemp("engine_rows")), cfg)
+    spec = f"{cfg.chrom}:1-{cfg.region_length}"
+    graph = construct_graph(sim.fasta, sim.vcf, spec, use_index=True)
+    index = index_graph(graph)
+    lib = get_lib()
+    native_caller._setup_lib(lib)
+    entry = native_caller._get_prep(lib, sim.sams, GenomicRegion.parse(spec), 3840, False)
+    return NativeAligner(graph, index), (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+
+
+def _verdicts_both(cuda, na, rows):
+    """(kernel, plain) verdict rows of `rows` on the card."""
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.ops.device_align import DeviceAligner, stage_tails, verdicts_plain
+    from graphtyper_tpu_torch.ops.seed_probe import stage_kmers
+
+    hi, lo, valid, tails, lens = rows
+    dal = DeviceAligner(na, cuda)
+    kmers = stage_kmers(hi, lo, valid, cuda)
+    staged_tails = stage_tails(tails, lens, cuda)
+    before = counters.COUNTS["device_align"]
+    got = dal.launch(kmers, *staged_tails, hi.shape[1]).cpu()
+    assert counters.COUNTS["device_align"] == before + 1
+    want = verdicts_plain(*kmers, *staged_tails, *dal.tables, key_steps=dal.key_steps,
+                          ref_steps=dal.ref_steps).cpu()
+    return got, want
+
+
+@pytest.mark.parametrize("nk", [2, 4, 8])
+def test_device_align_kernel_matches_plain_on_synthetic_rows(cuda, synthetic, nk):
+    import types
+
+    from test_torch_device_align_batches import synthetic_rows
+
+    got, want = _verdicts_both(cuda, types.SimpleNamespace(**synthetic), synthetic_rows(synthetic, nk, seed=nk))
+    assert torch.equal(got, want)
+
+
+def test_device_align_kernel_matches_plain_on_engine_rows(cuda, engine_rows):
+    na, rows = engine_rows
+    got, want = _verdicts_both(cuda, na, rows)
+    assert torch.equal(got, want)
+    assert (want[:, 0] & 1).float().mean() > 0.3
+
+
+def _probe_both(cuda, rows, keys, bits):
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.ops.seed_probe import DeviceSeeder, probe_bits, probe_bits_plain, stage_kmers
+
+    seeder = DeviceSeeder(keys, cuda, bits=bits)
+    kmers = stage_kmers(*rows[:3], cuda)
+    before = counters.COUNTS["seed_probe"]
+    got = probe_bits(*kmers, seeder.bitset, seeder.bits).cpu()
+    assert counters.COUNTS["seed_probe"] == before + 1
+    return got, probe_bits_plain(*kmers, seeder.bitset, seeder.bits).cpu()
+
+
+@pytest.mark.parametrize("bits", [14, 24])
+@pytest.mark.parametrize("nk", [2, 4, 8])
+def test_seed_probe_kernel_matches_plain_on_synthetic_rows(cuda, synthetic, nk, bits):
+    from test_torch_device_align_batches import synthetic_rows
+
+    got, want = _probe_both(cuda, synthetic_rows(synthetic, nk, seed=20 + nk), synthetic["keys"], bits)
+    assert torch.equal(got, want) and want.any()
+
+
+def test_seed_probe_kernel_matches_plain_on_engine_rows(cuda, engine_rows):
+    from graphtyper_tpu_torch.ops.seed_probe import bitset_bits_for
+
+    na, rows = engine_rows
+    got, want = _probe_both(cuda, rows, na.keys, bitset_bits_for(len(na.keys)))
+    assert torch.equal(got, want) and want.any()
