@@ -43,16 +43,34 @@ Phases, one line each, none of them caught:
               of 2^16 records in verify and on (its host run's state), and
               the warm call-iteration wall off, on, on, off; the kernels
               launched, no plain version on the card's runs
-  6. verdict  device_align.cu against verdicts_plain, exactly, and seed
+  6. sv       the other subcommands, each through the port's CLI on cuda in
+     camou    this process, then with --device cpu in a subprocess: equal
+     hla      md5 of the uncompressed VCFs, scoring (pileup for discover)
+     discover rows on the card and no plain version. sv: genotype_sv on
+              bench.py's SV workload (tools/bench_sv.py's 300 kb, 4-sample
+              30x cohort, built by graphtyper_tpu_torch/tools/bench_sv.py)
+              with --avg_cov_by_readlen, GT_DEVICE_ALIGN=on (SV pools skip
+              the verdicts: 0 launches), in memory and in the streaming
+              caller. camou: genotype_camou over two 25 kb intervals of a
+              60 kb cohort at error rate 0.02, verdicts off and on (sw_rot
+              launched; device_align launched in the on run). hla:
+              genotype_hla --segment_fasta on the 120-allele IMGT-shaped
+              panel of tests/pipeline/test_hla_imgt.py and its 12 truth
+              samples (12/12 truth pairs called). discover: the discover
+              subcommand on the sw cohort (sw_rot launched)
+  7. verdict  device_align.cu against verdicts_plain, exactly, and seed
      seed     seed_probe.cu against probe_bits_plain, on the tests'
               adversarial batch, the align pool's rows and 2^19 rows drawn
               from them; CUDA-event times of both and the bound
 The SW batches come from tests/test_torch_sw_batches.py, the verdict and
-seed batches from tests/test_torch_device_align_batches.py. The tests hold
-the port's CPU path to the JAX package byte for byte
-(tests/test_torch_slice.py, tests/test_torch_sw.py,
-tests/test_torch_device_align.py, tests/test_torch_seed_probe.py).
-Then one JSON line of the kernels (launches on their paths, error, times,
+seed batches from tests/test_torch_device_align_batches.py, the HLA panel
+from tests/test_torch_subcommand_data.py. The tests hold the port's CPU
+path to the JAX package byte for byte (tests/test_torch_slice.py,
+tests/test_torch_sw.py, tests/test_torch_device_align.py,
+tests/test_torch_seed_probe.py, tests/test_torch_sv.py,
+tests/test_torch_camou_hla.py, tests/test_torch_cli_tools.py).
+Then one JSON line of the kernels (launches on their paths, the new
+subcommands' included, error, times,
 bound; for sw_rot also its times and bounds per shape, the empty launch,
 the align_batch times and the R = 5 / R = 8 times; for device_align and
 seed_probe the times at 2^19 rows and per input), and the last line
@@ -119,6 +137,15 @@ REALIGN_BATCHES = (1, 6, 40)  # align_batch timed whole at the main path's batch
 # 32-mer exact), so the verdict kernel decides most of the call iterations
 ALIGN = ("align", dict(region_length=200_000, coverage=30.0, n_samples=4, read_length=151,
                        error_rate=0.001, seed=3, out_format="bam"))
+# bench.py's SV workload (bench.py:234-253 -> tools/bench_sv.py:108-146):
+# 300 kb, 11 SVs, 4 samples at 30x, 288,000 reads of 125 bp
+SV = dict(kb=300, samples=4, coverage=30.0)
+# a 60 kb noisy cohort and two 25 kb BED intervals (camou ploidy 4); at
+# error rate 0.02 discovery reaches realignment
+CAMOU = (dict(region_length=60_000, coverage=30.0, n_samples=4, read_length=151, error_rate=0.02, seed=4,
+              out_format="bam"), ((2_000, 27_000), (32_000, 57_000)))
+HLA_REGION = "chr6:1-12000"  # the IMGT-shaped panel's contig
+HLA_PAIRS = 1100  # read pairs a sample, as in tests/pipeline/test_hla_imgt.py
 STREAM_BATCH = 1 << 16  # records a streaming batch: three or more batches on the align cohort
 KERNEL_ROWS = 1 << 19  # a streaming batch stages up to 2 * 2^18 + 16 rows, padded to 2^19
 # int32 operations of the verdict function on its inputs, counted from
@@ -456,7 +483,7 @@ def slice_phase(work, name, sim_kw):
           f" {wall:.3f} s = {sim.n_reads / wall:.1f} reads/s ({len(outs)} region units,"
           f" --threads {THREADS}); counters {json.dumps(seen, sort_keys=True)}; {n_records} VCF"
           f" records, md5 {md5} == --device cpu", flush=True)
-    return seen
+    return seen, sim, cfg
 
 
 def _state_md5(sites):
@@ -475,29 +502,33 @@ def _state_md5(sites):
     return h.hexdigest()
 
 
-def _cli_in_process(argv, device_align, device_seed="auto"):
+def _cli_in_process(argv, device_align, **opts):
     """The port's CLI in this process, with GT_DEVICE_ALIGN=device_align in
-    the environment of the region workers it spawns and Options.device_seed
-    set; returns (sorted output paths, counters, wall s)."""
+    the environment (and of the region workers it spawns) and `opts` set on
+    the options it parses; returns (sorted output paths, counters, wall s)."""
     from dataclasses import replace
 
     from graphtyper_tpu_torch import cli, counters
-    from graphtyper_tpu_torch.config import set_options
+    from graphtyper_tpu_torch.config import DEFAULT_OPTIONS, set_options
     from graphtyper_tpu_torch.pipeline.genotype import shutdown_region_pool
 
     args = cli.build_parser().parse_args(argv)
-    set_options(replace(cli._options_from_args(args), device_seed=device_seed))
+    set_options(replace(cli._options_from_args(args), **opts))
     os.environ["GT_DEVICE_ALIGN"] = device_align
     printed = io.StringIO()
     counters.reset()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(printed):
-        rc = args.fn(args)
-    wall = time.perf_counter() - t0
-    seen = counters.totals()
-    shutdown_region_pool()  # the next run's workers see its environment
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = args.fn(args)
+        wall = time.perf_counter() - t0
+        seen = counters.totals()
+    finally:
+        shutdown_region_pool()  # the next run's workers see its environment
+        os.environ.pop("GT_DEVICE_ALIGN")
+        set_options(DEFAULT_OPTIONS)
     if rc != 0:
-        raise RuntimeError(f"port genotype {argv[-1]} device_align={device_align} exited {rc}")
+        raise RuntimeError(f"port {argv[0]} {argv[-1]} device_align={device_align} exited {rc}")
     return sorted(printed.getvalue().split()), seen, wall
 
 
@@ -540,7 +571,8 @@ def align_phase(torch, np, work, dev):
     for run, mode, seed in (("cuda on", "on", "auto"), ("cuda off", "off", "auto"),
                             ("cuda on + device_seed", "on", "on")):
         outs, seen, walls[run] = _cli_in_process(
-            _genotype_argv(sim, cfg, os.path.join(work, name, run.replace(" ", "_")), dev.type), mode, seed)
+            _genotype_argv(sim, cfg, os.path.join(work, name, run.replace(" ", "_")), dev.type), mode,
+            device_seed=seed)
         md5s[run] = _md5(outs)
         _no_plain(seen, run)
         if mode == "on" and seen.get("device_align", 0) <= 0:
@@ -551,8 +583,6 @@ def align_phase(torch, np, work, dev):
             launches[k] += seen.get(k, 0)
         print(f"align: CLI {run}: {sim.n_reads} reads in {walls[run]:.3f} s, md5 {md5s[run]},"
               f" counters {json.dumps(seen, sort_keys=True)}", flush=True)
-    os.environ.pop("GT_DEVICE_ALIGN")
-    set_options(DEFAULT_OPTIONS)
     argv = _genotype_argv(sim, cfg, os.path.join(work, name, "cpu_on"), "cpu")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", GT_DEVICE_ALIGN="on")
     proc = subprocess.run([sys.executable, "-m", "graphtyper_tpu_torch.cli", *argv], cwd=HERE,
@@ -620,6 +650,169 @@ def align_phase(torch, np, work, dev):
     return dict(launches=launches, na=NativeAligner(graph, index), keys=np.asarray(index.keys, np.uint64),
                 rows=rows, md5=md5s["cuda on"], clean_share=clean / (clean + fallback),
                 walls=wall, cli_walls=walls)
+
+
+def _sam_flags(paths):
+    return [a for p in paths for a in ("--sam", p)]
+
+
+def _vcfs(out_dir):
+    import glob
+
+    return sorted(glob.glob(os.path.join(out_dir, "**", "*.vcf.gz"), recursive=True))
+
+
+def card_and_cpu(work, name, argv_of, card_runs, cpu_align="", need="scoring_rows"):
+    """One subcommand through the port's CLI: each (label, GT_DEVICE_ALIGN,
+    options) of card_runs on cuda in this process, then on --device cpu in a
+    subprocess with CUDA_VISIBLE_DEVICES="" and GT_DEVICE_ALIGN=cpu_align.
+    Every run writes the same VCFs (md5 of the uncompressed files), every
+    card run counts `need` rows and no plain version. argv_of(out, device)
+    gives the arguments. Returns ({label: (counters, wall s)}, md5, files)."""
+    md5s, runs = {}, {}
+    for label, mode, opts in card_runs:
+        out = os.path.join(work, name, label.replace(" ", "_"))
+        _, seen, wall = _cli_in_process(argv_of(out, "cuda"), mode, **opts)
+        _no_plain(seen, f"{name} {label}")
+        if seen.get(need, 0) <= 0:
+            raise AssertionError(f"{name} {label}: no {need} on the card: {seen}")
+        md5s[label], runs[label] = _md5(_vcfs(out)), (seen, wall)
+    out = os.path.join(work, name, "cpu")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", GT_DEVICE_ALIGN=cpu_align)
+    proc = subprocess.run([sys.executable, "-m", "graphtyper_tpu_torch.cli", *argv_of(out, "cpu")], cwd=HERE,
+                          capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"port {name} on cpu exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    files = _vcfs(out)
+    md5s["cpu"] = _md5(files)
+    if not files or len(set(md5s.values())) != 1:
+        raise AssertionError(f"{name}: the VCFs differ: {md5s}")
+    return runs, md5s["cpu"], files
+
+
+def _records(files):
+    n = 0
+    for p in files:
+        with gzip.open(p, "rt") as f:
+            n += sum(1 for line in f if not line.startswith("#"))
+    return n
+
+
+def _phase_line(name, what, runs, n_reads, md5, files):
+    print(f"{name}: {what}; " + "; ".join(
+        f"{label} {wall:.3f} s" + (f" = {n_reads / wall:.1f} reads/s" if n_reads else "")
+        + f", counters {json.dumps(seen, sort_keys=True)}" for label, (seen, wall) in runs.items())
+        + f"; {len(files)} VCFs, {_records(files)} records, md5 {md5} == --device cpu", flush=True)
+
+
+def sv_phase(work):
+    """bench.py's SV workload (tools/bench_sv.py's cohort, built by the
+    port's graphtyper_tpu_torch/tools/bench_sv.py): genotype_sv over the
+    300 kb region with --avg_cov_by_readlen, on the card with
+    GT_DEVICE_ALIGN=on (SV pools skip the verdicts, so none may launch),
+    then in the streaming caller, then on --device cpu."""
+    from graphtyper_tpu_torch.tools.bench_sv import build_cohort
+
+    t0 = time.perf_counter()
+    sv = build_cohort(os.path.join(work, "sv", "sim"), **SV)
+    built = time.perf_counter() - t0
+    avg = os.path.join(work, "sv", "avg_cov_by_readlen.txt")
+    with open(avg, "w") as f:
+        f.writelines(f"{c}\n" for c in sv.avg_cov_by_readlen)
+
+    def argv(out, device):
+        return ["genotype_sv", sv.fasta, sv.sv_vcf, "--region", sv.region, "-O", out,
+                "--avg_cov_by_readlen", avg, "--device", device, *_sam_flags(sv.bams)]
+
+    runs, md5, files = card_and_cpu(work, "sv", argv, [("cuda", "on", {}),
+                                                        ("cuda streaming", "on", dict(streaming_caller="on"))])
+    for label, (seen, _) in runs.items():
+        if seen.get("device_align", 0) or seen.get("device_align_rows", 0):
+            raise AssertionError(f"sv {label}: an SV pool launched the verdict kernel: {seen}")
+    _phase_line("sv", f"genotype_sv {sv.region}, {sv.n_svs} SVs, {sv.n_reads} reads of {SV['samples']} samples"
+                f" (cohort built in {built:.3f} s)", runs, sv.n_reads, md5, files)
+    return runs
+
+
+def camou_phase(work):
+    """genotype_camou over two 25 kb intervals (ploidy 4) of a noisy 60 kb
+    cohort whose discovery reaches realignment: on the card with the
+    verdicts off and on, then on --device cpu with them on."""
+    from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
+
+    sim_kw, intervals = CAMOU
+    cfg = SimConfig(**sim_kw)
+    sim = simulate_cohort(os.path.join(work, "camou", "sim"), cfg)
+    bed = os.path.join(work, "camou", "intervals.bed")
+    with open(bed, "w") as f:
+        f.writelines(f"{cfg.chrom}\t{lo}\t{hi}\n" for lo, hi in intervals)
+
+    def argv(out, device):
+        return ["genotype_camou", sim.fasta, bed, "-O", out, "--threads", str(THREADS), "--device", device,
+                *_sam_flags(sim.sams)]
+
+    runs, md5, files = card_and_cpu(work, "camou", argv, [("cuda", "", {}), ("cuda on", "on", {})], "on")
+    for label, (seen, _) in runs.items():
+        if seen.get("sw_rot", 0) <= 0:
+            raise AssertionError(f"camou {label}: realignment did not launch sw_rot: {seen}")
+    if runs["cuda on"][0].get("device_align", 0) <= 0:
+        raise AssertionError(f"camou: GT_DEVICE_ALIGN=on did not launch the verdict kernel: {runs['cuda on'][0]}")
+    _phase_line("camou", f"genotype_camou {len(intervals)} intervals of {cfg.chrom}:1-{cfg.region_length},"
+                f" {sim.n_reads} reads of {cfg.n_samples} samples (error rate {cfg.error_rate}, seed {cfg.seed})",
+                runs, sim.n_reads, md5, files)
+    return runs
+
+
+def hla_phase(work):
+    """genotype_hla with --segment_fasta on tests/pipeline/test_hla_imgt.py's
+    IMGT-shaped panel (120 alleles) and its 12 truth samples (the numpy-only
+    copy in tests/test_torch_subcommand_data.py): card against --device
+    cpu, and the correct allele-pair rate of the segment record, which that
+    test holds at 1.0."""
+    from test_torch_subcommand_data import build_imgt_panel, imgt_truth_pairs, write_pair_sam
+
+    panel = build_imgt_panel(os.path.join(work, "hla", "panel"))
+    truth = imgt_truth_pairs(sorted(panel["carried"]))
+    sams = [write_pair_sam(os.path.join(work, "hla", f"s{k}.sam"), f"s{k}", panel["haps"][a], panel["haps"][b],
+                           1000 + k, HLA_PAIRS) for k, (a, b) in enumerate(truth)]
+    n_reads = 2 * HLA_PAIRS * len(sams)
+
+    def argv(out, device):
+        return ["genotype_hla", panel["fasta"], panel["hla_vcf"], "--region", HLA_REGION, "--segment_fasta",
+                panel["panel"], "-O", out, "--device", device, *_sam_flags(sams)]
+
+    runs, md5, files = card_and_cpu(work, "hla", argv, [("cuda", "", {})])
+    seg = [p for p in files if p.endswith(".segments.vcf.gz")]
+    if len(files) != 2 or len(seg) != 1:
+        raise AssertionError(f"hla: expected a .hla and a .segments VCF: {files}")
+    with gzip.open(seg[0], "rt") as f:
+        rec = next(line for line in f if not line.startswith("#")).rstrip("\n").split("\t")
+    names = rec[7].split("SEGMENT_ALLELES=")[1].split(";")[0].split(",")
+    correct = 0
+    for k, col in enumerate(rec[9:]):
+        a, b = sorted(int(x) for x in col.split(":")[0].replace("|", "/").split("/"))
+        correct += {names[a], names[b]} == set(truth[k])
+    if correct != len(truth):
+        raise AssertionError(f"hla: {correct} of {len(truth)} samples called their truth pair")
+    _phase_line("hla", f"genotype_hla --segment_fasta, {len(panel['carried'])} alleles, {len(sams)} samples;"
+                f" correct allele-pair rate {correct}/{len(truth)}", runs, n_reads, md5, files)
+    return runs
+
+
+def discover_phase(work, sim, cfg):
+    """The discover subcommand on the sw cohort (realignment reaches the VCF
+    there): card against --device cpu."""
+
+    def argv(out, device):
+        return ["discover", sim.fasta, "--region", f"{cfg.chrom}:1-{cfg.region_length}", "-O", out,
+                "--threads", str(THREADS), "--device", device, *_sam_flags(sim.sams)]
+
+    runs, md5, files = card_and_cpu(work, "discover", argv, [("cuda", "", {})], need="pileup_rows")
+    if runs["cuda"][0].get("sw_rot", 0) <= 0:
+        raise AssertionError(f"discover: realignment did not launch sw_rot: {runs['cuda'][0]}")
+    _phase_line("discover", f"discover {cfg.chrom}:1-{cfg.region_length} on the sw cohort", runs, sim.n_reads,
+                md5, files)
+    return runs
 
 
 def _kernel_inputs(np, align):
@@ -791,9 +984,20 @@ def main() -> int:
     bench_phase("--rot")
     rot_launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        sims = {}
         for name, sim_kw in SLICES:
-            rot_launches += slice_phase(work, name, sim_kw)["sw_rot"]
+            seen, *sims[name] = slice_phase(work, name, sim_kw)
+            rot_launches += seen["sw_rot"]
         align = align_phase(torch, np, work, dev)
+        t0 = time.perf_counter()
+        sv_phase(work)
+        camou = camou_phase(work)
+        hla_phase(work)
+        discover = discover_phase(work, *sims["sw"])
+        print(f"subcommands: sv, camou, hla and discover took {time.perf_counter() - t0:.3f} s", flush=True)
+    for runs in (camou, discover):
+        rot_launches += sum(seen.get("sw_rot", 0) for seen, _ in runs.values())
+    align["launches"]["device_align"] += sum(seen.get("device_align", 0) for seen, _ in camou.values())
     if row_launches <= 0:
         raise AssertionError("tools.bench_sw --row did not launch the row kernel")
     inputs = _kernel_inputs(np, align)

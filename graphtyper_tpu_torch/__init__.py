@@ -9,8 +9,16 @@ own: ops/, the seam modules of typer/ and pipeline/ that call them, and the
 hand-written CUDA kernels under csrc/. It never imports jax.
 
 Entry points:
-    python -m graphtyper_tpu_torch.cli genotype ref.fa --sam ... -O out
+    python -m graphtyper_tpu_torch.cli <subcommand> ...   (all 15 of the JAX
+        package's CLI; genotype, genotype_sv, genotype_camou, genotype_hla,
+        discover and call run on --device, cuda by default)
     python -m graphtyper_tpu_torch.tools.bench_sw [--row|--rot]
+    python -m graphtyper_tpu_torch.tools.bench_sv [--device cpu]
+
+Not ported yet: the JAX package's parallel/ (multi-host and mesh), the
+genotype_forward ops, and the library-only modules typer/haplotype_extractor,
+typer/variant_map, io/crai, io/cram_writer and utils/simulate_indep, which
+no subcommand reaches (ROADMAP.md).
 
 Device options of `graphtyper_tpu_torch.config.Options`, as the port reads
 them: `device_sw` and `device_discovery` take "auto" and "on" as one value,

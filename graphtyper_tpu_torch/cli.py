@@ -1,14 +1,16 @@
 """Command-line interface of the torch port.
 
-Usage: python -m graphtyper_tpu_torch.cli genotype ref.fa --sam a.bam ... \\
-           --region chr1:1-200000 -O out [--device cuda]
+Usage: python -m graphtyper_tpu_torch.cli <subcommand> [args]
 
-Port of the `genotype` subcommand of graphtyper_tpu/cli.py (cmd_genotype
-:156, its parser :390, _add_common :134); its option helpers are copied.
-The device defaults to cuda and the command fails when there is no GPU;
-`--device cpu` runs the plain PyTorch versions instead. The multi-host flags raise NotImplementedError
-until the parallel slice is ported; the other subcommands are still to
-port (ROADMAP.md).
+Port of graphtyper_tpu/cli.py with all of its subcommands (the parsers of
+:386-498): genotype, genotype_sv, genotype_camou, genotype_hla, discover
+and call do device work and take `--device` (default cuda, which fails
+when there is no GPU; `--device cpu` runs the plain PyTorch versions).
+genotype_lr, popvcf, construct, check, index, bamshrink, vcf_break_down,
+vcf_concatenate and vcf_merge are host-only and take no `--device`, as in
+the JAX package. Its option helpers are copied. The multi-host flags of
+`genotype` raise NotImplementedError until the parallel slice is ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -149,7 +151,7 @@ def _read_avg_cov(path: str, n_sams: int) -> list[float] | None:
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    """graphtyper_tpu/cli.py:134 plus --device."""
+    """graphtyper_tpu/cli.py:134."""
     import os
 
     p.add_argument("--output", "-O", default="results", help="Output directory")
@@ -169,6 +171,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no_decompose", action="store_true")
     p.add_argument("--no_cleanup", action="store_true")
     p.add_argument("--output_all_variants", action="store_true")
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; fails without a GPU) or cpu")
 
@@ -213,7 +218,170 @@ def cmd_genotype(args) -> int:
     return 0
 
 
+def cmd_genotype_sv(args) -> int:
+    """graphtyper_tpu/cli.py:229 on the resolved device."""
+    from graphtyper_tpu_torch.device import resolve_device
+    from graphtyper_tpu_torch.pipeline.genotype import genotype_sv
+
+    device = resolve_device(args.device)
+    sams = _read_sams_arg(args)
+    avg_cov = None
+    if args.avg_cov_by_readlen:
+        avg_cov = _read_avg_cov(args.avg_cov_by_readlen, len(sams))
+        if avg_cov is None:
+            return 1
+    print(genotype_sv(args.ref, args.sv_vcf, sams, args.region, args.output, device,
+                      avg_cov_by_readlen=avg_cov))
+    return 0
+
+
+def cmd_genotype_lr(args) -> int:
+    from graphtyper_tpu_torch.config import current_options
+    from graphtyper_tpu_torch.pipeline.genotype_lr import genotype_lr
+
+    print(genotype_lr(args.ref, _read_sams_arg(args), args.region, args.output, opts=current_options()))
+    return 0
+
+
+def cmd_genotype_camou(args) -> int:
+    """graphtyper_tpu/cli.py:255 on the resolved device."""
+    from graphtyper_tpu_torch.device import resolve_device
+    from graphtyper_tpu_torch.pipeline.genotype_camou import genotype_camou
+
+    device = resolve_device(args.device)
+    print(genotype_camou(args.ref, args.interval_bed, _read_sams_arg(args), args.output, device))
+    return 0
+
+
+def cmd_genotype_hla(args) -> int:
+    """graphtyper_tpu/cli.py:266 on the resolved device."""
+    from graphtyper_tpu_torch.device import resolve_device
+    from graphtyper_tpu_torch.pipeline.genotype_hla import genotype_hla
+
+    device = resolve_device(args.device)
+    out = genotype_hla(
+        args.ref,
+        args.hla_vcf,
+        _read_sams_arg(args),
+        args.region,
+        args.output,
+        device,
+        interval_fn=args.interval_file,
+        segment_fasta_files=args.segment_fasta or None,
+    )
+    print(out)
+    return 0
+
+
+def cmd_popvcf(args) -> int:
+    from graphtyper_tpu_torch.io.popvcf import decode_file, encode_file
+
+    if args.mode == "encode":
+        encode_file(args.input, args.output)
+    else:
+        decode_file(args.input, args.output)
+    print(args.output)
+    return 0
+
+
+def cmd_discover(args) -> int:
+    """graphtyper_tpu/cli.py:294 on the resolved device."""
+    import os
+
+    from graphtyper_tpu_torch.device import resolve_device
+    from graphtyper_tpu_torch.graph.coords import AbsolutePosition
+    from graphtyper_tpu_torch.io.fasta import FastaFile
+    from graphtyper_tpu_torch.typer.discovery import streamlined_discovery
+
+    device = resolve_device(args.device)
+    vcf = streamlined_discovery(_read_sams_arg(args), args.ref, args.region, [], device)
+    fasta = FastaFile(args.ref)
+    os.makedirs(args.output, exist_ok=True)
+    out = os.path.join(args.output, "discovered.vcf.gz")
+    vcf.write(out, fasta.contigs, AbsolutePosition(fasta.contigs), is_dropping_genotypes=True)
+    print(out)
+    return 0
+
+
+def cmd_construct(args) -> int:
+    from graphtyper_tpu_torch.graph.build import construct_graph
+
+    g = construct_graph(args.ref, args.vcf or "", args.region, is_sv_graph=args.sv_graph)
+    g.save(args.graph)
+    print(f"Graph constructed: {len(g.ref_nodes)} ref nodes, {len(g.var_nodes)} var nodes -> {args.graph}")
+    return 0
+
+
+def cmd_call(args) -> int:
+    """Call variants of a pre-constructed graph on the resolved device
+    (graphtyper_tpu/cli.py:318; the reference advertises this subcommand
+    but never wired it, main.cpp:1374 vs :1394-1430)."""
+    import os
+
+    from graphtyper_tpu_torch.device import resolve_device
+    from graphtyper_tpu_torch.graph.graph import Graph
+    from graphtyper_tpu_torch.index.build import index_graph
+    from graphtyper_tpu_torch.pipeline.caller import call_pools
+    from graphtyper_tpu_torch.pipeline.vcf_operations import vcf_merge_and_break
+
+    device = resolve_device(args.device)
+    g = Graph.load(args.graph)
+    index = index_graph(g)
+    region = g.genomic_region
+    result = call_pools(g, index, _read_sams_arg(args), device, region=region, is_writing_hap=False)
+    os.makedirs(args.output, exist_ok=True)
+    out_vcf = os.path.join(args.output, f"{region.chr or 'graph'}_calls.vcf.gz")
+    vcf_merge_and_break([result.vcf], out_vcf, region.to_string(), g, filter_zero_qual=True)
+    print(out_vcf)
+    return 0
+
+
+def cmd_check(args) -> int:
+    from graphtyper_tpu_torch.graph.graph import Graph
+
+    g = Graph.load(args.graph)
+    ok = g.check()
+    print(f"Graph {args.graph}: size={g.size()} check={'OK' if ok else 'FAILED'}")
+    return 0 if ok else 1
+
+
+def cmd_index(args) -> int:
+    print("The 'index' subcommand is deprecated: the k-mer index is built in-memory per iteration.", file=sys.stderr)
+    return 0
+
+
+def cmd_bamshrink(args) -> int:
+    from graphtyper_tpu_torch.graph.coords import GenomicRegion
+    from graphtyper_tpu_torch.pipeline.bamshrink import bamshrink
+
+    region = GenomicRegion.parse(args.region)
+    print(bamshrink(args.sam, region.chr, region.begin, region.end, args.output_sam, args.avg_cov_by_readlen))
+    return 0
+
+
+def cmd_vcf_break_down(args) -> int:
+    from graphtyper_tpu_torch.pipeline.vcf_tools import vcf_break_down_file
+
+    vcf_break_down_file(args.graph, args.vcf, args.output, region=args.region)
+    return 0
+
+
+def cmd_vcf_concatenate(args) -> int:
+    from graphtyper_tpu_torch.pipeline.vcf_operations import vcf_concatenate
+
+    vcf_concatenate(args.vcfs, args.output)
+    return 0
+
+
+def cmd_vcf_merge(args) -> int:
+    from graphtyper_tpu_torch.pipeline.vcf_tools import vcf_merge_files
+
+    vcf_merge_files(args.vcfs, args.output)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
+    """graphtyper_tpu/cli.py:386, with `--device` on the device subcommands."""
     ap = argparse.ArgumentParser(prog="graphtyper-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -230,7 +398,108 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_common(p)
     _add_advanced(p)
+    _add_device(p)
     p.set_defaults(fn=cmd_genotype)
+
+    p = sub.add_parser("genotype_sv", help="Genotype structural variants from an SV VCF")
+    p.add_argument("ref")
+    p.add_argument("sv_vcf")
+    p.add_argument(
+        "--avg_cov_by_readlen",
+        default="",
+        help="File with average coverage divided by read length, one value per line (one per SAM; main.cpp:910-912)",
+    )
+    _add_common(p)
+    _add_advanced(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_genotype_sv)
+
+    p = sub.add_parser("genotype_lr", help="Genotype from long-read pileups")
+    p.add_argument("ref")
+    _add_common(p)
+    _add_advanced(p)
+    p.set_defaults(fn=cmd_genotype_lr)
+
+    p = sub.add_parser("genotype_camou", help="Genotype camouflaged (multi-copy) regions")
+    p.add_argument("ref")
+    p.add_argument("interval_bed")
+    _add_common(p)
+    _add_advanced(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_genotype_camou)
+
+    p = sub.add_parser("genotype_hla", help="Genotype HLA alleles (WIP, as in the reference)")
+    p.add_argument("--interval_file", default=None,
+                   help="BED intervals for multi-interval bamshrink preprocessing")
+    p.add_argument("--segment_fasta", action="append", default=[],
+                   help="Per-gene panel FASTA for whole-segment calling (repeatable)")
+    p.add_argument("ref")
+    p.add_argument("hla_vcf")
+    _add_common(p)
+    _add_advanced(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_genotype_hla)
+
+    p = sub.add_parser("popvcf", help="Encode/decode population VCFs (popVCF)")
+    p.add_argument("mode", choices=["encode", "decode"])
+    p.add_argument("input")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_popvcf)
+
+    p = sub.add_parser("discover", help="Run only the discovery step, emit a sites VCF")
+    p.add_argument("ref")
+    _add_common(p)
+    _add_advanced(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_discover)
+
+    p = sub.add_parser("construct", help="Construct a graph from FASTA + VCF")
+    p.add_argument("graph", help="Output graph file (.npz)")
+    p.add_argument("ref")
+    p.add_argument("--vcf", default="")
+    p.add_argument("--region", default=".")
+    p.add_argument("--sv_graph", action="store_true")
+    p.set_defaults(fn=cmd_construct)
+
+    p = sub.add_parser("call", help="Call variants of a graph")
+    p.add_argument("graph")
+    p.add_argument("--sam", action="append", default=[])
+    p.add_argument("--sams", default="")
+    p.add_argument("--output", "-O", default="call_results")
+    _add_device(p)
+    p.set_defaults(fn=cmd_call)
+
+    p = sub.add_parser("check", help="Check a constructed graph")
+    p.add_argument("graph")
+    p.set_defaults(fn=cmd_check)
+
+    p = sub.add_parser("index", help="(deprecated)")
+    p.set_defaults(fn=cmd_index)
+
+    p = sub.add_parser("bamshrink", help="Filter and shrink reads for a region")
+    p.add_argument("sam")
+    p.add_argument("output_sam")
+    p.add_argument("--region", required=True)
+    p.add_argument("--avg_cov_by_readlen", type=float, default=-1.0)
+    p.set_defaults(fn=cmd_bamshrink)
+
+    p = sub.add_parser("vcf_break_down", help="Decompose variants of a VCF")
+    p.add_argument("graph")
+    p.add_argument("vcf")
+    p.add_argument("--output", required=True)
+    p.add_argument("--region", default=".")
+    p.set_defaults(fn=cmd_vcf_break_down)
+
+    p = sub.add_parser("vcf_concatenate", help="Concatenate VCF files")
+    p.add_argument("vcfs", nargs="+")
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=cmd_vcf_concatenate)
+
+    p = sub.add_parser("vcf_merge", help="Merge sample-pool VCF files")
+    p.add_argument("vcfs", nargs="+")
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=cmd_vcf_merge)
+
     return ap
 
 
@@ -239,7 +508,9 @@ def main(argv: list[str] | None = None) -> int:
     from graphtyper_tpu_torch.config import set_options
     from graphtyper_tpu_torch.utils.log import setup_logging
 
-    setup_logging(args.log, args.verbose, args.vverbose)
+    setup_logging(
+        getattr(args, "log", ""), getattr(args, "verbose", False), getattr(args, "vverbose", False)
+    )
     set_options(_options_from_args(args))
     return args.fn(args)
 

@@ -1,8 +1,9 @@
 """Genotyping pipeline orchestrators on a torch device.
 
 Forks of graphtyper_tpu/pipeline/genotype.py: `genotype` (:146),
-`genotype_only_with_a_vcf` (:20), `genotype_regions` (:388) and its region
-worker pool (:347, :461-485); its two region helpers are copied. The device
+`genotype_only_with_a_vcf` (:20), `genotype_sv` (:84), `genotype_regions`
+(:388) and its region worker pool (:347, :461-485); its two region helpers
+are copied. The device
 is an argument threaded down to discovery and the call iterations. Region
 workers are spawn processes that get the device in the slot the JAX
 package used for the jax platform, load the C++ engine and the kernel
@@ -21,7 +22,7 @@ from graphtyper_tpu_torch import counters
 from graphtyper_tpu_torch.graph.build import construct_graph
 from graphtyper_tpu_torch.graph.coords import GenomicRegion
 from graphtyper_tpu_torch.index.build import index_graph
-from graphtyper_tpu_torch.pipeline.caller import call_pools
+from graphtyper_tpu_torch.pipeline.caller import call_pool, call_pools
 from graphtyper_tpu_torch.pipeline.vcf_operations import vcf_merge_and_break, vcf_merge_and_filter
 
 
@@ -115,6 +116,71 @@ def genotype_only_with_a_vcf(
         if os.path.exists(out_path + ext):
             shutil.copyfile(out_path + ext, legacy + ext)
     return out_path
+
+
+def genotype_sv(
+    ref_path: str,
+    sv_vcf: str,
+    sams: list[str],
+    region_str: str,
+    output_dir: str,
+    device: torch.device | str,
+    avg_cov_by_readlen: list[float] | None = None,
+) -> str:
+    """Single-iteration SV genotyping (genotype_sv.cpp:26-180), the pool
+    scored on `device`. Fork of graphtyper_tpu/pipeline/genotype.py:84."""
+    region = GenomicRegion.parse(region_str)
+    _clamp_region_to_contig(region, ref_path)
+    padded = GenomicRegion(region.chr, region.begin, region.end)
+    padded.pad_end(200000)
+    padded.pad(1000)
+
+    os.makedirs(output_dir, exist_ok=True)
+    # SV pools position-filter to the padded region (reference iterator
+    # semantics); an index lets the native parse byte-slice instead of
+    # decompressing whole inputs (io/bai.py) — CRAM needs none (container
+    # headers carry ranges)
+    bams = [p for p in sams if p.endswith(".bam")]
+    if bams:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from graphtyper_tpu_torch.io.bai import ensure_bai
+
+        with ThreadPoolExecutor(max_workers=min(8, len(bams))) as ex:
+            list(ex.map(ensure_bai, bams))
+    graph = construct_graph(ref_path, sv_vcf, padded.to_string(), is_sv_graph=True, use_index=True)
+    index = index_graph(graph)
+
+    result = call_pool(
+        graph,
+        index,
+        sams,
+        device,
+        region=padded,
+        avg_cov_by_readlen=avg_cov_by_readlen,
+        is_writing_calls_vcf=True,
+        is_writing_hap=False,
+        ref_path=ref_path,
+    )
+
+    out_path = os.path.join(output_dir, "graphtyper.sv.vcf.gz")
+    out_region = os.path.join(output_dir, region.to_file_string() + ".vcf.gz")
+    os.makedirs(os.path.dirname(out_region), exist_ok=True)
+    vcf_merge_and_break(
+        [result.vcf],
+        out_region,
+        region.to_string(),
+        graph,
+        filter_zero_qual=True,
+        force_no_break_down=True,  # SVs are not decomposed
+    )
+    import shutil
+
+    shutil.copyfile(out_region, out_path)
+    for ext in (".tbi", ".csi"):
+        if os.path.exists(out_region + ext):
+            shutil.copyfile(out_region + ext, out_path + ext)
+    return out_region
 
 
 def genotype(

@@ -1,8 +1,10 @@
 """The port stands alone and never hides the device: a whole CLI `genotype`
-run leaves jax and the JAX package out of sys.modules, no source of the
-port imports either, every import of the port resolves inside it, the C++
-engine it loads is its own build, the CLI refuses to run without a GPU
-unless told `--device cpu`, and a non-CPU tensor whose kernel cannot be
+run, and CLI `genotype_sv`, `genotype_camou` and `genotype_hla` runs, leave
+jax and the JAX package out of sys.modules, no source of the port imports
+either, every import of the port resolves inside it, the C++ engine it
+loads is its own build, every device subcommand of the CLI refuses to run
+without a GPU unless told `--device cpu`, no orchestration module wraps a
+device seam in a try/except, and a non-CPU tensor whose kernel cannot be
 built raises."""
 
 import ast
@@ -237,3 +239,113 @@ def test_cli_device_align_on_requires_cuda(monkeypatch, tmp_path):
     finally:
         set_options(DEFAULT_OPTIONS)
     assert not list(tmp_path.iterdir())
+
+
+@pytest.fixture(scope="module")
+def subcommand_runs(tmp_path_factory):
+    """CLI genotype_sv, genotype_camou and genotype_hla runs on the CPU device
+    in one fresh process, on inputs made by the port's SV cohort builder,
+    its simulator and tests/test_torch_subcommand_data.py; its stdout."""
+    tmp = tmp_path_factory.mktemp("no_jax_subcommands")
+    script = textwrap.dedent(
+        f"""
+        import os, sys
+        sys.path.insert(0, {str(REPO)!r})
+        sys.path.append({str(REPO / "tests")!r})
+        from graphtyper_tpu_torch import cli
+        from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
+        from graphtyper_tpu_torch.tools.bench_sv import build_cohort
+        from test_torch_subcommand_data import build_imgt_panel, write_pair_sam
+        tmp = {str(tmp)!r}
+        sv = build_cohort(os.path.join(tmp, "sv"), kb=40, samples=2, coverage=4.0)
+        assert cli.main(["genotype_sv", sv.fasta, sv.sv_vcf, "--region", sv.region, "-O",
+                         os.path.join(tmp, "sv_out"), "--device", "cpu", *[f"--sam={{b}}" for b in sv.bams]]) == 0
+        cfg = SimConfig(region_length=6000, coverage=12.0, seed=17, out_format="bam")
+        sim = simulate_cohort(os.path.join(tmp, "camou"), cfg)
+        bed = os.path.join(tmp, "camou.bed")
+        open(bed, "w").write(f"{{cfg.chrom}}\\t1000\\t5000\\n")
+        assert cli.main(["genotype_camou", sim.fasta, bed, "-O", os.path.join(tmp, "camou_out"),
+                         "--device", "cpu", *[f"--sam={{s}}" for s in sim.sams]]) == 0
+        p = build_imgt_panel(os.path.join(tmp, "hla"), n_families=2, per_family=3)
+        names = sorted(p["carried"])
+        sam = write_pair_sam(os.path.join(tmp, "hla", "s.sam"), "s", p["haps"][names[0]],
+                             p["haps"][names[4]], 5, n_pairs=300)
+        assert cli.main(["genotype_hla", p["fasta"], p["hla_vcf"], "--region", "chr6:1-12000",
+                         "--segment_fasta", p["panel"], "-O", os.path.join(tmp, "hla_out"),
+                         "--device", "cpu", "--sam", sam]) == 0
+        print("LOADED", sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "graphtyper_tpu")))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return proc.stdout, tmp
+
+
+def test_cli_subcommand_runs_never_import_jax(subcommand_runs):
+    out, tmp = subcommand_runs
+    assert "LOADED []" in out, out[-2000:]
+    for pattern in ("sv_out/*.vcf.gz", "camou_out/*/*.camou.vcf.gz", "hla_out/*/*.hla.vcf.gz",
+                    "hla_out/*/*.segments.vcf.gz"):
+        assert list(tmp.glob(pattern)), pattern
+
+
+@pytest.mark.parametrize("argv", [
+    ["genotype_sv", "ref.fa", "sv.vcf", "--sam", "a.bam"],
+    ["genotype_camou", "ref.fa", "intervals.bed", "--sam", "a.bam"],
+    ["genotype_hla", "ref.fa", "hla.vcf", "--sam", "a.bam"],
+    ["discover", "ref.fa", "--sam", "a.bam"],
+    ["call", "graph.npz", "--sam", "a.bam"],
+])
+def test_device_subcommands_require_cuda(monkeypatch, tmp_path, argv):
+    """Every device subcommand asks for cuda by default and raises before
+    any work on a machine without a GPU."""
+    from graphtyper_tpu_torch import cli
+    from graphtyper_tpu_torch.config import DEFAULT_OPTIONS, set_options
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            cli.main([*argv, "-O", str(tmp_path / "out")])
+    finally:
+        set_options(DEFAULT_OPTIONS)
+    assert not list(tmp_path.iterdir())
+
+
+# the modules this slice added or forked, and the calls in them that reach a
+# device (besides any name they import from the port's ops/)
+SUBCOMMAND_MODULES = (
+    "cli.py", "pipeline/genotype.py", "pipeline/genotype_camou.py", "pipeline/genotype_hla.py",
+    "pipeline/genotype_lr.py", "pipeline/vcf_tools.py", "typer/hla.py", "typer/segment_calling.py",
+    "typer/discovery_lr.py", "tools/bench_sv.py",
+)
+DEVICE_SEAMS = {
+    "call_pool", "call_pools", "streamlined_discovery", "genotype", "genotype_regions",
+    "genotype_only_with_a_vcf", "genotype_sv", "genotype_camou", "genotype_hla", "resolve_device",
+    "_genotype_camou_body", "_genotype_hla_body",
+}
+
+
+def test_subcommand_modules_hide_no_device_failure():
+    """No try/except in these modules has a device seam, or a name imported
+    from the port's ops/, called in its body."""
+    offenders = []
+    for rel in SUBCOMMAND_MODULES:
+        path = PKG / rel
+        tree = ast.parse(path.read_text())
+        seams = set(DEVICE_SEAMS)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(f"{PKG.name}.ops"):
+                seams.update(a.asname or a.name for a in node.names)
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Try) and node.handlers):
+                continue
+            for inner in (n for stmt in node.body for n in ast.walk(stmt)):
+                if isinstance(inner, ast.Call):
+                    f = inner.func
+                    name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+                    if name in seams:
+                        offenders.append(f"{rel}:{inner.lineno}: {name}")
+    assert not offenders, offenders
