@@ -34,6 +34,11 @@ Phases, one line each, none of them caught:
               region loop of four 50 kb units over 4 region workers), and
               50 kb, 10x, 4 samples, error rate 0.02, whose VCF changes when
               the SW results are discarded, so a wrong kernel result shows
+     pools    more call pools at once than the prepared-pool cache holds:
+              `genotype` on 8 single-sample files at --threads 8 (8 pools in
+              8 threads), the SAM paths given positionally after the
+              options; on cuda with the verdicts off and on, then on
+              --device cpu with them on: one md5
   5. align    the call iterations' device-resident align stage on bench.py's
               shape (200 kb, 30x, 4 samples, error rate 0.001): the CLI on
               cuda with GT_DEVICE_ALIGN=on, off, and on with device_seed on,
@@ -61,10 +66,18 @@ Phases, one line each, none of them caught:
   7. verdict  device_align.cu against verdicts_plain, exactly, and seed
      seed     seed_probe.cu against probe_bits_plain, on the tests'
               adversarial batch, the align pool's rows and 2^19 rows drawn
-              from them; CUDA-event times of both and the bound
+              from them (and the verdicts on the arena-edge batch); CUDA-
+              event times of both, the bound, and the random loads each
+              kernel issues (the probes; verdict_gathers)
+     gather   the card's rate of random 4-byte loads (csrc/gather.cu) from a
+              table the size of the seed bitset and of the packed verdict
+              tables: the measured gather ceiling, and each kernel's loads
+              over it
 The SW batches come from tests/test_torch_sw_batches.py, the verdict and
 seed batches from tests/test_torch_device_align_batches.py, the HLA panel
-from tests/test_torch_subcommand_data.py. The tests hold the port's CPU
+from tests/test_torch_subcommand_data.py. VCF md5s are taken with the
+##fileDate header line masked, so they compare across days. The tests
+hold the port's CPU
 path to the JAX package byte for byte (tests/test_torch_slice.py,
 tests/test_torch_sw.py, tests/test_torch_device_align.py,
 tests/test_torch_seed_probe.py, tests/test_torch_sv.py,
@@ -73,7 +86,8 @@ Then one JSON line of the kernels (launches on their paths, the new
 subcommands' included, error, times,
 bound; for sw_rot also its times and bounds per shape, the empty launch,
 the align_batch times and the R = 5 / R = 8 times; for device_align and
-seed_probe the times at 2^19 rows and per input), and the last line
+seed_probe the times at 2^19 rows and per input, the measured gather
+ceiling and the time it gives the kernel's loads), and the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a GPU, and outside a checkout of the repository.
 """
@@ -100,6 +114,10 @@ SLICES = (  # (name, simulated cohort)
                 error_rate=0.02, seed=2, out_format="bam")),
 )
 THREADS = 4
+# more single-sample pools than the prepared-pool cache's 4, all at once
+POOLS = dict(region_length=50_000, coverage=10.0, n_samples=8, read_length=151, error_rate=0.01, seed=6,
+             out_format="bam")
+POOL_THREADS = 8
 KERNEL_SHAPE = (4096, 192, 512)  # pairs, query width (151 bp reads padded), window width
 SMALL_BATCH = 6  # pairs in a typical realignment batch of the main path
 PATH_SHAPE = (151, 506)  # a 151 bp read against a realignment window of the main path
@@ -133,10 +151,6 @@ DEP_OPS_PER_CELL = 4
 DEP_OP_CYCLES = 4
 SHFL_CYCLES = 30
 REALIGN_BATCHES = (1, 6, 40)  # align_batch timed whole at the main path's batch sizes
-# bench.py's shape and error rate: at 0.001 most rows are clean (every
-# 32-mer exact), so the verdict kernel decides most of the call iterations
-ALIGN = ("align", dict(region_length=200_000, coverage=30.0, n_samples=4, read_length=151,
-                       error_rate=0.001, seed=3, out_format="bam"))
 # bench.py's SV workload (bench.py:234-253 -> tools/bench_sv.py:108-146):
 # 300 kb, 11 SVs, 4 samples at 30x, 288,000 reads of 125 bp
 SV = dict(kb=300, samples=4, coverage=30.0)
@@ -147,6 +161,10 @@ CAMOU = (dict(region_length=60_000, coverage=30.0, n_samples=4, read_length=151,
 HLA_REGION = "chr6:1-12000"  # the IMGT-shaped panel's contig
 HLA_PAIRS = 1100  # read pairs a sample, as in tests/pipeline/test_hla_imgt.py
 STREAM_BATCH = 1 << 16  # records a streaming batch: three or more batches on the align cohort
+# bench.py's shape and error rate: at 0.001 most rows are clean (every
+# 32-mer exact), so the verdict kernel decides most of the call iterations
+ALIGN_COHORT = dict(region_length=200_000, coverage=30.0, n_samples=4, read_length=151, error_rate=0.001,
+                    seed=3, out_format="bam")
 KERNEL_ROWS = 1 << 19  # a streaming batch stages up to 2 * 2^18 + 16 rows, padded to 2^19
 # int32 operations of the verdict function on its inputs, counted from
 # graphtyper_tpu/ops/device_align.py:107-258 for the work a row's data
@@ -168,11 +186,13 @@ SEED_OPS_PER_PROBE = 10
 
 
 def _md5(paths):
-    """md5 of the concatenated uncompressed VCFs, in path order."""
+    """md5 of the concatenated uncompressed VCFs, in path order, each with
+    its ##fileDate line masked."""
     h = hashlib.md5()
     for p in sorted(paths):
         with gzip.open(p, "rb") as f:
-            h.update(f.read())
+            for line in f:
+                h.update(b"##fileDate=\n" if line.startswith(b"##fileDate=") else line)
     return h.hexdigest()
 
 
@@ -512,7 +532,7 @@ def _cli_in_process(argv, device_align, **opts):
     from graphtyper_tpu_torch.config import DEFAULT_OPTIONS, set_options
     from graphtyper_tpu_torch.pipeline.genotype import shutdown_region_pool
 
-    args = cli.build_parser().parse_args(argv)
+    args = cli.parse_args(argv)
     set_options(replace(cli._options_from_args(args), **opts))
     os.environ["GT_DEVICE_ALIGN"] = device_align
     printed = io.StringIO()
@@ -560,8 +580,8 @@ def align_phase(torch, np, work, dev):
     from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
     from graphtyper_tpu_torch.typer.native_align import NativeAligner
 
-    name, sim_kw = ALIGN
-    cfg = SimConfig(**sim_kw)
+    name = "align"
+    cfg = SimConfig(**ALIGN_COHORT)
     sim = simulate_cohort(os.path.join(work, name, "sim"), cfg)
     spec = f"{cfg.chrom}:1-{cfg.region_length}"
     launches = {"device_align": 0, "seed_probe": 0}
@@ -646,10 +666,13 @@ def align_phase(torch, np, work, dev):
 
     lib = get_lib()
     entry = native_caller._get_prep(lib, sim.sams, region, 3840, False)
-    rows = (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+    try:
+        rows = (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+    finally:
+        entry.release(lib)
     return dict(launches=launches, na=NativeAligner(graph, index), keys=np.asarray(index.keys, np.uint64),
-                rows=rows, md5=md5s["cuda on"], clean_share=clean / (clean + fallback),
-                walls=wall, cli_walls=walls)
+                rows=rows, md5=md5s["cuda on"], clean_share=clean / (clean + fallback), walls=wall,
+                cli_walls=walls)
 
 
 def _sam_flags(paths):
@@ -815,20 +838,45 @@ def discover_phase(work, sim, cfg):
     return runs
 
 
-def _kernel_inputs(np, align):
-    """(name, rows) inputs of the verdict and seed-probe phases: the tests'
-    adversarial batch against its synthetic index, the align cohort's pool
-    rows against its index, and KERNEL_ROWS rows drawn from those."""
+def kernel_inputs(align):
+    """(name, aligner tables, index keys, rows) inputs of the verdict and
+    seed-probe phases: the tests' adversarial batch against its synthetic
+    index, the align cohort's pool rows against its index, and KERNEL_ROWS
+    rows drawn from those."""
     import types
 
     from test_torch_device_align_batches import sample_rows, synthetic_index, synthetic_rows
 
     idx = synthetic_index(0)
-    synth = types.SimpleNamespace(**idx)
     rows = align["rows"]
-    return [("adversarial", synth, idx["keys"], synthetic_rows(idx, 4, seed=4)),
+    return [("adversarial", types.SimpleNamespace(**idx), idx["keys"], synthetic_rows(idx, 4, seed=4)),
             ("align_pool", align["na"], align["keys"], rows),
             (f"{KERNEL_ROWS}_rows", align["na"], align["keys"], sample_rows(rows, KERNEL_ROWS))]
+
+
+def pools_phase(work):
+    """More call pools at once than the prepared-pool cache holds (4): the
+    POOLS cohort's 8 single-sample files at --threads 8, so call_pools runs
+    8 pools in 8 threads in each call iteration, each staging its rows on
+    the card with the verdicts on. The SAM paths stand positionally after
+    the options, so the card machine's own Python parses that form. On cuda
+    with the verdicts off and on, then on --device cpu with them on."""
+    from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
+
+    cfg = SimConfig(**POOLS)
+    sim = simulate_cohort(os.path.join(work, "pools", "sim"), cfg)
+
+    def argv(out, device):
+        return ["genotype", sim.fasta, "--region", f"{cfg.chrom}:1-{cfg.region_length}", "-O", out,
+                "--threads", str(POOL_THREADS), "--device", device, *sim.sams]
+
+    runs, md5, files = card_and_cpu(work, "pools", argv, [("cuda", "", {}), ("cuda on", "on", {})], "on")
+    if runs["cuda on"][0].get("device_align", 0) < 2 * cfg.n_samples:
+        raise AssertionError(f"pools: fewer verdict launches than 8 pools in 2 call iterations: {runs['cuda on'][0]}")
+    _phase_line("pools", f"genotype {cfg.chrom}:1-{cfg.region_length} on {cfg.n_samples} single-sample BAMs"
+                f" given positionally, --threads {POOL_THREADS} ({cfg.n_samples} pools at once)", runs,
+                sim.n_reads, md5, files)
+    return runs
 
 
 def verdict_bound(np, na, dal, rows, S, sm_clock_mhz, n_sm):
@@ -876,29 +924,45 @@ def _exact(np, name, got, want):
 
 def verdict_phase(torch, np, dev, inputs, sm_clock, n_sm):
     """device_align.cu against verdicts_plain on the card, exactly, and
-    CUDA-event times of both, with the bound, on each input."""
+    CUDA-event times of both, with the bound and the kernel's random loads
+    (verdict_gathers), on each input; then exactly on the arena-edge batch
+    at nk 2, 4 and 8."""
+    import types
+
     from graphtyper_tpu_torch.ops.device_align import DeviceAligner, stage_tails, verdicts_plain
     from graphtyper_tpu_torch.ops.seed_probe import stage_kmers
+    from graphtyper_tpu_torch.tools.bench_align import verdict_gathers
+    from test_torch_device_align_batches import arena_edge_index, arena_edge_rows
 
+    edge = arena_edge_index(0)
+    edges = [(f"arena_edge_nk{nk}", types.SimpleNamespace(**edge), None, arena_edge_rows(edge, nk, seed=nk))
+             for nk in (2, 4, 8)]
     out = {}
-    for name, na, _, rows in inputs:
+    for name, na, _, rows in [*inputs, *edges]:
         dal = DeviceAligner(na, dev)
         kmers = stage_kmers(*rows[:3], dev)
         tails = stage_tails(*rows[3:], dev)
         nk, S = rows[0].shape[1], kmers[0].shape[0]
         steps = dict(key_steps=dal.key_steps, ref_steps=dal.ref_steps)
         got = dal.launch(kmers, *tails, nk)
-        err = _exact(np, f"device_align on {name}", got, verdicts_plain(*kmers, *tails, *dal.tables, **steps))
+        want = verdicts_plain(*kmers, *tails, *dal.tables, **steps)
+        err = _exact(np, f"device_align on {name}", got, want)
+        if name.startswith("arena_edge"):
+            continue
         out[name] = dict(rows=len(rows[-1]), S=S, nk=nk, max_abs_err=err,
                          ms=_time_ms(lambda: dal.launch(kmers, *tails, nk)),
                          plain_ms=_time_ms(lambda: verdicts_plain(*kmers, *tails, *dal.tables, **steps), 3),
                          bound=verdict_bound(np, na, dal, rows, S, sm_clock, n_sm),
                          key_steps=dal.key_steps, ref_steps=dal.ref_steps,
-                         clean=float((got[: len(rows[-1]), 0] & 1).float().mean()))
-    print("verdict: device_align == verdicts_plain (max |diff| 0); CUDA-event ms: " + "; ".join(
-        f"{n}: {v['rows']} rows (S {v['S']}, nk {v['nk']}, key_steps {v['key_steps']}, ref_steps"
-        f" {v['ref_steps']}, clean {v['clean']:.4f}) kernel {v['ms']:.4f}, plain {v['plain_ms']:.3f},"
-        f" bound {v['bound'][0]:.4f} ({v['bound'][1]})" for n, v in out.items()), flush=True)
+                         clean=float((got[: len(rows[-1]), 0] & 1).float().mean()),
+                         gathers=verdict_gathers(dal, rows, want.cpu().numpy(), S),
+                         table_bytes=sum(t.numel() * t.element_size() for t in dal.packed))
+    print("verdict: device_align == verdicts_plain (max |diff| 0, also on the arena-edge batch at nk 2, 4"
+          " and 8); CUDA-event ms: " + "; ".join(
+              f"{n}: {v['rows']} rows (S {v['S']}, nk {v['nk']}, key_steps {v['key_steps']}, ref_steps"
+              f" {v['ref_steps']}, clean {v['clean']:.4f}, {v['gathers']} random loads) kernel {v['ms']:.4f},"
+              f" plain {v['plain_ms']:.3f}, bound {v['bound'][0]:.4f} ({v['bound'][1]})"
+              for n, v in out.items()), flush=True)
     return out
 
 
@@ -919,12 +983,35 @@ def seed_phase(torch, np, dev, inputs, sm_clock, n_sm):
         out[name] = dict(rows=len(rows[0]), S=S, nk=nk, bits=seeder.bits, max_abs_err=err,
                          ms=_time_ms(lambda: probe_bits(*args)),
                          plain_ms=_time_ms(lambda: probe_bits_plain(*args), 3),
-                         bound=seed_bound(np, rows[2], S, prow_for(nk), bitset_bytes, sm_clock, n_sm))
+                         bound=seed_bound(np, rows[2], S, prow_for(nk), bitset_bytes, sm_clock, n_sm),
+                         gathers=97 * int((rows[2] != 0).sum()), table_bytes=bitset_bytes)
     print("seed: seed_probe == probe_bits_plain (max |diff| 0); CUDA-event ms: " + "; ".join(
         f"{n}: {v['rows']} rows (S {v['S']}, nk {v['nk']}, {v['bits']} bits) kernel {v['ms']:.4f},"
         f" plain {v['plain_ms']:.3f}, bound {v['bound'][0]:.4f} ({v['bound'][1]})"
         for n, v in out.items()), flush=True)
     return out
+
+
+def gather_phase(dev, verdict, seed):
+    """The measured gather ceiling: csrc/gather.cu's random 4-byte loads at
+    full occupancy from a table the size of each kernel's at 2^19 rows (the
+    seed bitset, the packed verdict tables), and the time that rate gives
+    each kernel's own random loads on every input."""
+    from graphtyper_tpu_torch.tools.bench_align import gather_rate
+
+    big = f"{KERNEL_ROWS}_rows"
+    rates = {}
+    for kernel, times in (("device_align", verdict), ("seed_probe", seed)):
+        rate = gather_rate(times[big]["table_bytes"], dev)
+        rates[kernel] = rate
+        for v in times.values():
+            v["gather_ms"] = v["gathers"] / rate["gloads_per_s"] / 1e6
+    print("gather: random 4-byte loads at full occupancy (csrc/gather.cu, CUDA events): " + "; ".join(
+        f"{k} table of {r['table_bytes']} bytes {r['gloads_per_s']:.3f} G loads/s; its loads at {big}:"
+        f" {times[big]['gathers']} in {times[big]['ms']:.4f} ms = "
+        f"{times[big]['gathers'] / times[big]['ms'] / 1e6:.3f} G/s, {times[big]['gather_ms']:.4f} ms at the"
+        f" ceiling" for (k, r), times in zip(rates.items(), (verdict, seed))), flush=True)
+    return rates
 
 
 def main() -> int:
@@ -948,7 +1035,7 @@ def main() -> int:
     sm_clock = float(smi("clocks.max.sm").split()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"card: torch {torch.__version__}, torch.version.cuda {torch.version.cuda},"
-          f" {n_sm} SMs, max SM clock {sm_clock:.0f} MHz", flush=True)
+          f" {n_sm} SMs, max SM clock {sm_clock:.0f} MHz; Python {sys.version.split()[0]}", flush=True)
 
     from graphtyper_tpu_torch import kernels
     from graphtyper_tpu_torch.io.native import engine_path
@@ -988,6 +1075,9 @@ def main() -> int:
         for name, sim_kw in SLICES:
             seen, *sims[name] = slice_phase(work, name, sim_kw)
             rot_launches += seen["sw_rot"]
+        t0 = time.perf_counter()
+        pools = pools_phase(work)
+        print(f"pools: took {time.perf_counter() - t0:.3f} s", flush=True)
         align = align_phase(torch, np, work, dev)
         t0 = time.perf_counter()
         sv_phase(work)
@@ -995,29 +1085,33 @@ def main() -> int:
         hla_phase(work)
         discover = discover_phase(work, *sims["sw"])
         print(f"subcommands: sv, camou, hla and discover took {time.perf_counter() - t0:.3f} s", flush=True)
-    for runs in (camou, discover):
+    for runs in (pools, camou, discover):
         rot_launches += sum(seen.get("sw_rot", 0) for seen, _ in runs.values())
-    align["launches"]["device_align"] += sum(seen.get("device_align", 0) for seen, _ in camou.values())
+    for runs in (pools, camou):
+        align["launches"]["device_align"] += sum(seen.get("device_align", 0) for seen, _ in runs.values())
     if row_launches <= 0:
         raise AssertionError("tools.bench_sw --row did not launch the row kernel")
-    inputs = _kernel_inputs(np, align)
+    inputs = kernel_inputs(align)
     verdict = verdict_phase(torch, np, dev, inputs, sm_clock, n_sm)
     seed = seed_phase(torch, np, dev, inputs, sm_clock, n_sm)
+    gather = gather_phase(dev, verdict, seed)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "graphtyper_tpu"))
     if loaded:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
 
     def gather_entry(name, source, replaces, times):
         """A kernels-line entry timed at KERNEL_ROWS rows, with every input's
-        time and bound under `shapes`."""
+        time, bound and gather-ceiling time under `shapes`."""
         big = times[f"{KERNEL_ROWS}_rows"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=align["launches"][name],
                     max_abs_err=max(v["max_abs_err"] for v in times.values()), ms=big["ms"],
                     plain_ms=big["plain_ms"], bound_ms=big["bound"][0], bound_by=big["bound"][1],
-                    library_ms=None,
+                    library_ms=None, gather_gloads_per_s=gather[name]["gloads_per_s"],
+                    gathers=big["gathers"], gather_ms=big["gather_ms"],
                     shapes=[dict(shape=f"{n}: {v['rows']} rows, S {v['S']}, nk {v['nk']}", ms=v["ms"],
-                                 plain_ms=v["plain_ms"], bound_ms=v["bound"][0], bound_by=v["bound"][1])
+                                 plain_ms=v["plain_ms"], bound_ms=v["bound"][0], bound_by=v["bound"][1],
+                                 gathers=v["gathers"], gather_ms=v["gather_ms"])
                             for n, v in times.items()])
 
     main = row["times"]["main"]

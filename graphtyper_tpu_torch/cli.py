@@ -156,9 +156,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
     p.add_argument("--output", "-O", default="results", help="Output directory")
     p.add_argument("--region", default=".", help="Genomic region chr[:begin[-end]]")
-    p.add_argument("--sam", action="append", help="One SAM/BAM file (repeatable)")
+    p.add_argument("--sam", action="append",
+                   help="One SAM/BAM file (repeatable); SAM/BAM paths may also follow as "
+                        "positional arguments, before or after the options")
     p.add_argument("--sams", help="File with one SAM/BAM path per line")
-    p.add_argument("sam_positional", nargs="*", help="SAM/BAM files")
+    # the positional SAM/BAM paths: what parse_args leaves over
+    p.set_defaults(sam_positional=[])
     p.add_argument("--threads", type=int, default=os.cpu_count())
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--vverbose", action="store_true")
@@ -503,8 +506,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """Parse a command line. The subcommands that take SAM/BAM paths take
+    them as positional arguments anywhere after their own positionals:
+    argparse leaves them over and they become `sam_positional`. Anything
+    else left over is refused as argparse refuses it. (A positional with
+    nargs="*" behind the subcommand's own positionals is matched by
+    argparse differently across Python 3.12 patch releases once options
+    stand between them.)"""
+    ap = build_parser()
+    args, extra = ap.parse_known_args(argv)
+    paths = [a for a in extra if a != "--"]
+    if any(a.startswith("-") and a != "-" for a in paths) or (paths and not hasattr(args, "sam_positional")):
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    if hasattr(args, "sam_positional"):
+        args.sam_positional = paths
+    return args
+
+
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     from graphtyper_tpu_torch.config import set_options
     from graphtyper_tpu_torch.utils.log import setup_logging
 

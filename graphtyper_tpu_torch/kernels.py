@@ -144,7 +144,7 @@ def load(build_dir: Path | None = None) -> ctypes.CDLL:
     lib.gt_sw_row.restype = i32
     lib.gt_sw_row.argtypes = [vp] * 5 + [i32] * 8 + [vp]
     lib.gt_device_align.restype = i32
-    lib.gt_device_align.argtypes = [vp] * 17 + [i32] * 8 + [vp]
+    lib.gt_device_align.argtypes = [vp] * 11 + [i32] * 8 + [vp]
     lib.gt_seed_probe.restype = i32
     lib.gt_seed_probe.argtypes = [vp] * 5 + [i32] * 3 + [vp]
     _LIB = lib

@@ -18,12 +18,15 @@ the chain's start and end (uint32 bit patterns), and the first 6 crossed
 variant labels as var_id + (kmer << 24), -1 when empty.
 
 `DeviceAligner.verdicts_async` is the wrapper: CPU tensors run
-`verdicts_plain`, the plain PyTorch version; CUDA tensors launch
-csrc/device_align.cu (one thread per row), or the call raises.
+`verdicts_plain`, the plain PyTorch version, on the tables in the JAX
+package's layout (`TABLES`); CUDA tensors launch csrc/device_align.cu (one
+thread per row) on the same tables packed into 16-byte records
+(`PACKED`), or the call raises.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -44,9 +47,15 @@ M32 = 0xFFFFFFFF
 #: the searches add two table positions in int32, as the JAX package does
 MAX_TABLE = 1 << 30
 
-#: the tables in the order the kernel and `verdicts_plain` take them
+#: the tables in the order `verdicts_plain` takes them
 TABLES = ("keys_hi", "keys_lo", "offsets", "lab_start", "lab_end", "lab_var", "bucket",
           "ref_order", "ref_len", "ref_start", "ref_arena")
+#: the same tables as csrc/device_align.cu reads them, in its order: a
+#: record [n_keys, 4] of (key lo, key hi, offsets[i], offsets[i + 1]), a
+#: record [n_labels, 4] of (start, end, variant, 0), the buckets, a record
+#: [n_ref, 4] of (node start, length, arena offset, 0), all int32 bit
+#: patterns, and the arena padded with zeros to a multiple of 16 bytes
+PACKED = ("key_rec", "lab_rec", "bucket", "ref_rec", "ref_arena")
 
 
 def _ceil_log2(n: int) -> int:
@@ -198,7 +207,9 @@ class PendingVerdicts:
 
 class DeviceAligner:
     """Per-(graph, index) alignment state: the index and reference tables
-    go to `device` once and stay there for the call iteration."""
+    go to `device` once and stay there for the call iteration, in the
+    layout that runs on it: `packed` for the kernel on a card, `tables` for
+    `verdicts_plain` on the CPU (either is uploaded at its first use)."""
 
     def __init__(self, na, device: torch.device | str) -> None:
         """na: typer.native_align.NativeAligner (flat graph + index arrays).
@@ -234,8 +245,19 @@ class DeviceAligner:
             ref_start=np.asarray(na.ref_dna_start, dtype=np.int32),
             ref_arena=np.asarray(na.ref_arena, dtype=np.uint8),
         )
-        self.tables = tuple(torch.from_numpy(np.ascontiguousarray(host[n])).to(self.device)
-                            for n in TABLES)
+        self._host = host
+        self.n_labels = len(host["lab_start"])
+        self.n_arena = len(host["ref_arena"])
+
+    @functools.cached_property
+    def tables(self) -> tuple[torch.Tensor, ...]:
+        """The tables of `TABLES` on this aligner's device."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(self._host[n])).to(self.device) for n in TABLES)
+
+    @functools.cached_property
+    def packed(self) -> tuple[torch.Tensor, ...]:
+        """The tables of `PACKED` on this aligner's device."""
+        return tuple(torch.from_numpy(a).to(self.device) for a in pack_tables(self._host))
 
     def table_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.tables)
@@ -258,7 +280,7 @@ class DeviceAligner:
         _check_cuda("verdicts", dev, (
             ("hi", hi, torch.uint32, 2), ("lo", lo, torch.uint32, 2), ("valid", valid, torch.uint8, 2),
             ("tails", tails, torch.uint8, 2), ("lens", lens, torch.int32, 1),
-            *((n, t, t.dtype, 1) for n, t in zip(TABLES, self.tables)),
+            *((n, t, t.dtype, t.dim()) for n, t in zip(PACKED, self.packed)),
         ))
         if lo.shape != hi.shape or valid.shape != hi.shape or tails.shape != (S, TAIL_PAD) \
                 or lens.shape != (S,):
@@ -266,18 +288,17 @@ class DeviceAligner:
                 f"verdicts: shapes differ: hi {tuple(hi.shape)}, lo {tuple(lo.shape)}, valid "
                 f"{tuple(valid.shape)}, tails {tuple(tails.shape)} (want [S, {TAIL_PAD}]), "
                 f"lens {tuple(lens.shape)}")
-        if tails.data_ptr() % 16:
-            raise ValueError("verdicts: tails must start on a 16-byte boundary")
+        if any(t.data_ptr() % 16 for t in (tails, *self.packed)):
+            raise ValueError("verdicts: tails and the packed tables must start on a 16-byte boundary")
         if S * nk >= 2**30:
             raise ValueError("verdicts: S * nk must be below 2^30")
         with torch.cuda.device(dev):
             out = torch.empty((S, OUT_COLS), dtype=torch.int32, device=dev)
             rc = lib.gt_device_align(
                 hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), tails.data_ptr(), lens.data_ptr(),
-                *(t.data_ptr() for t in self.tables), out.data_ptr(),
-                S, nk, self.n_keys, self.tables[3].shape[0], self.n_ref,
-                self.tables[-1].shape[0], self.key_steps, self.ref_steps,
-                torch.cuda.current_stream(dev).cuda_stream,
+                *(t.data_ptr() for t in self.packed), out.data_ptr(),
+                S, nk, self.n_keys, self.n_labels, self.n_ref, self.n_arena, self.key_steps,
+                self.ref_steps, torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"device_align kernel launch failed: cudaGetLastError() = {rc}")
@@ -305,6 +326,25 @@ class DeviceAligner:
         uint8; lens [S] int32 (all row-padded, on this aligner's device).
         Returns host int32 [n_rows, OUT_COLS]."""
         return self.verdicts_async(kmers, tails, lens, n_rows, nk).wait()
+
+
+def pack_tables(host: dict) -> tuple[np.ndarray, ...]:
+    """The kernel's tables (`PACKED`) from the host tables of `TABLES`:
+    each record is one 16-byte load on the card."""
+    def record(*cols):
+        rec = np.zeros((len(cols[0]), 4), np.int32)
+        for i, c in enumerate(cols):
+            rec[:, i] = np.asarray(c).astype(np.uint32, copy=False).view(np.int32)
+        return rec
+
+    offsets = host["offsets"]
+    arena = np.zeros(-(-len(host["ref_arena"]) // 16) * 16, np.uint8)
+    arena[: len(host["ref_arena"])] = host["ref_arena"]
+    return (record(host["keys_lo"], host["keys_hi"], offsets[:-1], offsets[1:]),
+            record(host["lab_start"], host["lab_end"], host["lab_var"]),
+            np.ascontiguousarray(host["bucket"], np.int32),
+            record(host["ref_order"], host["ref_len"], host["ref_start"]),
+            arena)
 
 
 def tables_nonempty(na) -> bool:

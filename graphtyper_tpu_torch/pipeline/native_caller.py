@@ -14,11 +14,14 @@ hooks of non-SV pools, on the same device: device seeding
 and, for alignment, in the streaming caller's stage/step pipeline. Unlike
 the JAX package's hooks they catch nothing: a kernel that fails to build
 or launch raises. Neither the rep-sharded oracle nor the mesh key is
-ported."""
+ported. Unlike the JAX package's prepared-pool cache, this one pins each
+entry while a pool uses it: pools that run at once never free each
+other's prepared reads."""
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import deque
 
 import numpy as np
@@ -242,7 +245,13 @@ def _names_from_filename() -> bool:
 class _PrepEntry:
     """One cached prepared pool: the C++ PrepPool handle plus the rows'
     kmer and tail matrices on the device (staged at first use, kept across
-    call iterations)."""
+    call iterations).
+
+    `_get_prep` hands an entry out pinned; its user calls `release` when it
+    no longer reads the handle. The handle and the staged tensors are freed
+    once the entry is out of the cache and the last pin is gone, by
+    whichever of the eviction and that release comes later. `pins` and
+    `cached` change only under `_PREP_LOCK`."""
 
     def __init__(self, handle, n_reads: int, n_rows: int, row_len: int, sample_names):
         self.handle = handle
@@ -252,6 +261,24 @@ class _PrepEntry:
         self.sample_names = sample_names
         self.kmers_dev = None  # staged (hi, lo, valid) tensors
         self.tails_dev = None  # staged (tails, lens) tensors
+        self.pins = 1  # the user that made it
+        self.cached = False
+
+    def release(self, lib) -> None:
+        """Drop the pin `_get_prep` took for this user."""
+        with _PREP_LOCK:
+            self.pins -= 1
+            unused = self.pins == 0 and not self.cached
+        if unused:
+            self._free(lib)
+
+    def _free(self, lib) -> None:
+        """Free the engine's PrepPool and drop the staged tensors; nothing
+        else can reach the entry any more."""
+        self.kmers_dev = None
+        self.tails_dev = None
+        lib.gt_prep_free(self.handle)
+        self.handle = None
 
     @property
     def nk_max(self) -> int:
@@ -297,17 +324,19 @@ class _PrepEntry:
 
 
 # prepared pools are reused across the call iterations (the reads do not
-# change between iterations; only the graph does)
+# change between iterations; only the graph does). call_pools runs pools
+# in threads, so the cache and the entries' pins are guarded by one lock.
 _PREP_CACHE: dict = {}
-
-
+_PREP_LOCK = threading.Lock()
 _PREP_CACHE_MAX = 4
 
 
 def _get_prep(lib, hts_paths, region, sam_flag_filter, force_both, position_filter=False,
               ref_path=None):
-    from graphtyper_tpu_torch.io.native import native_thread_count
     """Prepared pool for (files, region, filters): parse + sort + dedup once.
+    The entry comes back pinned: the caller calls its `release(lib)` when
+    it has done with it (in a `finally`), and until then no other thread's
+    eviction frees it.
 
     position_filter restricts the record set to reads overlapping
     [region.begin, region.end) — the reference's index-iterator semantics
@@ -323,9 +352,11 @@ def _get_prep(lib, hts_paths, region, sam_flag_filter, force_both, position_filt
         st = os.stat(p)
         ids.append((os.path.abspath(p), st.st_mtime_ns, st.st_size))
     key = (tuple(ids), region.chr, sam_flag_filter, force_both, fb, fe, ref_path)
-    hit = _PREP_CACHE.get(key)
-    if hit is not None:
-        return hit
+    with _PREP_LOCK:
+        hit = _PREP_CACHE.get(key)
+        if hit is not None:
+            hit.pins += 1
+            return hit
 
     interval = (region.chr, fb, fe) if position_filter else None
     datas = []
@@ -371,10 +402,23 @@ def _get_prep(lib, hts_paths, region, sam_flag_filter, force_both, position_filt
         ctypes.byref(row_len),
     )
     entry = _PrepEntry(handle, n_reads.value, n_rows.value, row_len.value, sample_names)
-    if len(_PREP_CACHE) >= _PREP_CACHE_MAX:
-        old = _PREP_CACHE.pop(next(iter(_PREP_CACHE)))
-        lib.gt_prep_free(old.handle)
-    _PREP_CACHE[key] = entry
+    unused = []
+    with _PREP_LOCK:
+        hit = _PREP_CACHE.get(key)
+        if hit is not None:  # another thread prepared the same pool meanwhile
+            hit.pins += 1
+            unused.append(entry)
+            entry = hit
+        else:
+            while len(_PREP_CACHE) >= _PREP_CACHE_MAX:
+                old = _PREP_CACHE.pop(next(iter(_PREP_CACHE)))
+                old.cached = False
+                if old.pins == 0:
+                    unused.append(old)
+            entry.cached = True
+            _PREP_CACHE[key] = entry
+    for old in unused:
+        old._free(lib)
     return entry
 
 
@@ -875,83 +919,86 @@ def run_native_call_pool_bam(
     )
     if entry is None:
         return None
-    sample_names = entry.sample_names
-    scorer = SiteScorer(graph, sample_names, device, hq_reads=hq_reads)
+    try:
+        sample_names = entry.sample_names
+        scorer = SiteScorer(graph, sample_names, device, hq_reads=hq_reads)
 
-    from graphtyper_tpu_torch.typer.native_align import NativeAligner, seed_filter_handle
+        from graphtyper_tpu_torch.typer.native_align import NativeAligner, seed_filter_handle
 
-    na = NativeAligner(graph, index)
-    site_order, site_cnum, site_is_snp = _graph_site_arrays(graph, scorer)
-    if n_threads <= 0:
-        n_threads = native_thread_count()
+        na = NativeAligner(graph, index)
+        site_order, site_cnum, site_is_snp = _graph_site_arrays(graph, scorer)
+        if n_threads <= 0:
+            n_threads = native_thread_count()
 
-    opts = current_options()
-    cand_words = None
-    if not is_sv and entry.n_rows > 0 and entry.nk_max > 0 and _device_seed_enabled(opts):
-        cand_words = np.ascontiguousarray(_device_seed_words(index, entry, lib, device))
-    verd_rows = None
-    dal_mode = device_align_mode(opts)
-    if not is_sv and entry.n_rows > 0 and entry.nk_max >= 2 and dal_mode in ("on", "verify"):
-        verd_rows = _device_align_verdicts(na, index, entry, lib, device)
+        opts = current_options()
+        cand_words = None
+        if not is_sv and entry.n_rows > 0 and entry.nk_max > 0 and _device_seed_enabled(opts):
+            cand_words = np.ascontiguousarray(_device_seed_words(index, entry, lib, device))
+        verd_rows = None
+        dal_mode = device_align_mode(opts)
+        if not is_sv and entry.n_rows > 0 and entry.nk_max >= 2 and dal_mode in ("on", "verify"):
+            verd_rows = _device_align_verdicts(na, index, entry, lib, device)
 
-    n_obs = ctypes.c_int64()
-    n_xvals = ctypes.c_int64()
-    n_conn = ctypes.c_int64()
-    n_counts = ctypes.c_int64()
-    n_touched = ctypes.c_int64()
-    ptr = _ptr
-    graph_site_index_args = (
-        ptr(na.ref_order), ptr(na.ref_dna_start), ptr(na.ref_dna_len),
-        ptr(na.ref_var_first), len(na.ref_order), ptr(na.ref_arena),
-        ptr(na.var_order), ptr(na.var_dna_start), ptr(na.var_dna_len),
-        ptr(na.var_out_ref), len(na.var_order), ptr(na.var_arena),
-        ptr(na.sp_ref_reach), ptr(na.sp_actual), len(na.sp_ref_reach),
-        ptr(site_order), ptr(site_cnum), ptr(site_is_snp), len(site_order),
-        ptr(na.keys), len(na.keys), ptr(na.offsets),
-        ptr(na.lab_start), ptr(na.lab_end), ptr(na.lab_var),
-    )
-    outs = (
-        ctypes.byref(n_obs), ctypes.byref(n_xvals), ctypes.byref(n_conn),
-        ctypes.byref(n_counts), ctypes.byref(n_touched),
-    )
-    reference_depth = None
-    if is_sv:
-        if avg_cov is not None and len(avg_cov) != len(sample_names):
-            return None  # per-file list vs sample count mismatch: object path
-        from graphtyper_tpu_torch.pipeline.caller import ReferenceDepth
-
-        reference_depth = ReferenceDepth(graph, len(sample_names))
-        avg_arr = (
-            np.ascontiguousarray(avg_cov, dtype=np.float64) if avg_cov is not None else None
+        n_obs = ctypes.c_int64()
+        n_xvals = ctypes.c_int64()
+        n_conn = ctypes.c_int64()
+        n_counts = ctypes.c_int64()
+        n_touched = ctypes.c_int64()
+        ptr = _ptr
+        graph_site_index_args = (
+            ptr(na.ref_order), ptr(na.ref_dna_start), ptr(na.ref_dna_len),
+            ptr(na.ref_var_first), len(na.ref_order), ptr(na.ref_arena),
+            ptr(na.var_order), ptr(na.var_dna_start), ptr(na.var_dna_len),
+            ptr(na.var_out_ref), len(na.var_order), ptr(na.var_arena),
+            ptr(na.sp_ref_reach), ptr(na.sp_actual), len(na.sp_ref_reach),
+            ptr(site_order), ptr(site_cnum), ptr(site_is_snp), len(site_order),
+            ptr(na.keys), len(na.keys), ptr(na.offsets),
+            ptr(na.lab_start), ptr(na.lab_end), ptr(na.lab_var),
         )
-        handle = lib.gt_call_finish_sv(
-            entry.handle,
-            *graph_site_index_args,
-            len(sample_names), 1 if hq_reads else 0, n_threads,
-            seed_filter_handle(index, lib, n_threads),
-            ptr(avg_arr) if avg_arr is not None else None,
-            ptr(reference_depth.depths), reference_depth.depths.shape[1],
-            int(reference_depth.reference_offset),
-            *outs,
+        outs = (
+            ctypes.byref(n_obs), ctypes.byref(n_xvals), ctypes.byref(n_conn),
+            ctypes.byref(n_counts), ctypes.byref(n_touched),
         )
-    else:
-        handle = lib.gt_call_finish(
-            entry.handle,
-            *graph_site_index_args,
-            None if cand_words is None else ptr(cand_words),
-            0 if cand_words is None else entry.nk_max,
-            None if verd_rows is None else ptr(verd_rows), 1 if dal_mode == "verify" else 0,
-            *([None] * 12),  # no rep-sharded results
-            len(sample_names), 1 if hq_reads else 0, n_threads,
-            seed_filter_handle(index, lib, n_threads),
-            *outs,
+        reference_depth = None
+        if is_sv:
+            if avg_cov is not None and len(avg_cov) != len(sample_names):
+                return None  # per-file list vs sample count mismatch: object path
+            from graphtyper_tpu_torch.pipeline.caller import ReferenceDepth
+
+            reference_depth = ReferenceDepth(graph, len(sample_names))
+            avg_arr = (
+                np.ascontiguousarray(avg_cov, dtype=np.float64) if avg_cov is not None else None
+            )
+            handle = lib.gt_call_finish_sv(
+                entry.handle,
+                *graph_site_index_args,
+                len(sample_names), 1 if hq_reads else 0, n_threads,
+                seed_filter_handle(index, lib, n_threads),
+                ptr(avg_arr) if avg_arr is not None else None,
+                ptr(reference_depth.depths), reference_depth.depths.shape[1],
+                int(reference_depth.reference_offset),
+                *outs,
+            )
+        else:
+            handle = lib.gt_call_finish(
+                entry.handle,
+                *graph_site_index_args,
+                None if cand_words is None else ptr(cand_words),
+                0 if cand_words is None else entry.nk_max,
+                None if verd_rows is None else ptr(verd_rows), 1 if dal_mode == "verify" else 0,
+                *([None] * 12),  # no rep-sharded results
+                len(sample_names), 1 if hq_reads else 0, n_threads,
+                seed_filter_handle(index, lib, n_threads),
+                *outs,
+            )
+        stats = _consume_call_result(
+            lib, handle, scorer, len(sample_names), n_obs, n_xvals, n_conn, n_counts, n_touched
         )
-    stats = _consume_call_result(
-        lib, handle, scorer, len(sample_names), n_obs, n_xvals, n_conn, n_counts, n_touched
-    )
-    if stats is None:
-        return None
-    return sample_names, scorer, stats[0], stats[1], reference_depth
+        if stats is None:
+            return None
+        return sample_names, scorer, stats[0], stats[1], reference_depth
+    finally:
+        entry.release(lib)
 
 
 def run_native_call_pool_stream(

@@ -42,7 +42,7 @@ from graphtyper_tpu_torch.ops.seed_probe import stage_kmers
 from graphtyper_tpu_torch.pipeline import native_caller
 from graphtyper_tpu_torch.pipeline.caller import call_pool
 from graphtyper_tpu_torch.typer.native_align import NativeAligner
-from test_torch_device_align_batches import synthetic_index, synthetic_rows
+from test_torch_device_align_batches import arena_edge_index, arena_edge_rows, synthetic_index, synthetic_rows
 from test_torch_site_scoring import _site_state
 
 # tests/pipeline/test_device_align.py's cohorts
@@ -85,6 +85,28 @@ def test_verdicts_match_reference_on_synthetic_rows(nk):
     assert (want[:, 3:] >= 1 << 24).any() and (want[:, 3:] < -1).any()
 
 
+@pytest.mark.parametrize("nk", [2, 4, 8])
+def test_verdicts_match_reference_at_the_arena_edges(nk):
+    """Tails whose arena bytes run past the arena's start and its end: each
+    byte's index is clamped, in the mismatch count of every row."""
+    idx = arena_edge_index(0)
+    na = types.SimpleNamespace(**idx)
+    rows = arena_edge_rows(idx, nk, seed=nk)
+    lens = rows[-1]
+    want = _reference_verdicts(na, rows)
+    # the arena index of each row's first tail byte: the chain ends tail
+    # bases before the row's end, in the node at or before it
+    nk_r = np.minimum(np.where(lens >= 32, 1 + (lens - 32) // 31, 0), nk)
+    tail = np.maximum(lens - 1 - 31 * nk_r, 0)
+    chain_end = (want[:, 2].astype(np.int64) & 0xFFFFFFFF) - tail
+    r = np.searchsorted(idx["ref_order"], chain_end, side="right") - 1
+    first = idx["ref_dna_start"][r] + (chain_end - idx["ref_order"][r]) + 1
+    assert ((first < 0) & (first + tail > 0)).any()  # past the arena's start
+    n_arena = len(idx["ref_arena"])
+    assert ((first < n_arena) & (first + tail > n_arena)).any()  # past its end
+    np.testing.assert_array_equal(_port_verdicts(na, rows), want)
+
+
 @pytest.fixture(scope="module")
 def cohorts(tmp_path_factory):
     """Each recipe's simulated BAMs, and its graph and index built by each
@@ -108,7 +130,10 @@ def _engine_rows(cohort):
     native_caller._setup_lib(lib)
     entry = native_caller._get_prep(lib, cohort["sim"].sams, GenomicRegion.parse(cohort["spec"]),
                                     3840, False)
-    return (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+    try:
+        return (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+    finally:
+        entry.release(lib)
 
 
 @pytest.mark.parametrize("nk", [2, 4, 8])

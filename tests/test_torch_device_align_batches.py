@@ -16,6 +16,10 @@ span, keys at special positions (start >= 0xD0000000, one ending at
 gt_prep_fetch_tails lay them out, from reads taken off that reference with
 mismatches, N codes, short lengths (< 32, < 63) and reads over node ends,
 plus rows of random keys and of the special keys.
+
+`arena_edge_index` and `arena_edge_rows` are a batch whose tails' arena
+bytes run past the start and the end of the arena, where the verdicts
+clamp each byte's index.
 """
 
 import numpy as np
@@ -161,3 +165,39 @@ def sample_rows(rows, n: int, seed: int = 5):
     """n rows drawn with replacement from `rows` (hi, lo, valid, tails, lens)."""
     pick = np.random.default_rng(seed).integers(0, len(rows[-1]), n)
     return tuple(np.ascontiguousarray(a[pick]) for a in rows)
+
+
+EDGE_SHIFT = 96  # bytes the arena offsets of the first and last nodes move
+
+
+def arena_edge_index(seed: int = 0) -> dict:
+    """`synthetic_index` with the arena offsets of the nodes that start in
+    the reference's first and last 200 bases moved EDGE_SHIFT bytes back and
+    forth: the tail of a read whose chain ends within about EDGE_SHIFT bases
+    of either end of the reference reads arena bytes before index 0 or past
+    the arena's last byte."""
+    idx = synthetic_index(seed)
+    order, start = idx["ref_order"], idx["ref_dna_start"].copy()
+    start[order < 200] -= EDGE_SHIFT
+    start[order >= len(idx["ref_codes"]) - 200] += EDGE_SHIFT
+    idx["ref_dna_start"] = start
+    return idx
+
+
+def arena_edge_rows(index: dict, nk: int, seed: int = 0, n: int = 360):
+    """Reads of 1 to min(nk, 3) kmers and every tail length from 1 to 30,
+    half of them starting in the reference's first 40 bases and half ending
+    0 to 118 bases before its last base, some with tail mismatches."""
+    rng = np.random.default_rng(seed)
+    ref = index["ref_codes"]
+    reads = []
+    for i in range(n):
+        nk_r = 1 + (i // 2) % min(nk, 3)
+        L = 31 * nk_r + 1 + 1 + (i // 6) % 30
+        p = (i // 2) % 40 if i % 2 == 0 else len(ref) - L - 2 * ((i // 2) % 60)
+        codes = ref[p : p + L].copy()
+        if i % 5 == 0:  # mismatches in the tail
+            q = rng.integers(31 * nk_r + 1, L, 2)
+            codes[q] = (codes[q] + 1) % 4
+        reads.append(codes)
+    return rows_from_reads(reads, nk)

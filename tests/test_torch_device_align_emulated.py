@@ -1,15 +1,24 @@
 """The verdict kernel's body (csrc/device_align.cu, the code before the end
 of its anonymous namespace) compiled for the CPU with g++ against a stub
-CUDA runtime and run in one thread over every row, held exactly to
-`verdicts_plain` on the synthetic adversarial batches at nk = 2, 4 and 8.
-Two rules are flipped in a temporary copy, and each flip must show:
+CUDA runtime and run block by block (three blocks of 64 threads striding
+over the rows, each thread a std::thread), held exactly to
+`verdicts_plain` on the synthetic adversarial batches and on the
+arena-edge batch at nk = 2, 4 and 8.
+The kernel's searches, run on their own, equal the true lower_bound of
+their range (numpy's searchsorted) and the JAX package's
+`_lower_bound_u64`. Three rules are flipped in a temporary copy, and each
+flip must show:
   * the `mid < hi` guard of the lower_bound. Past convergence it only moves
     an index that is already past the table's end further out, which the
     clamps then map to the same entry, so no verdict row can see it; the
-    check holds the kernel's search itself to the JAX package's
-    `_lower_bound_u64` on the batch's keys and chain ends, where the flip
-    must change an index;
-  * the -1 of an empty payload slot, which must change the verdict rows.
+    check holds the kernel's searches to the JAX package's on the batch's
+    keys and chain ends, where the flip must change an index;
+  * the -1 of an empty payload slot, which must change the verdict rows;
+  * the upper end of the tail's arena clamp, which must change the meta
+    column of a row whose tail runs past the arena's end.
+The count of loads from the tables that tools/bench_align.py
+`verdict_gathers` gives chip_smoke.py's "gather" line equals the body's own
+count of its `__ldg`s on the same rows.
 The kernel itself is held on the card (tests/test_torch_ops_cuda.py)."""
 
 import pathlib
@@ -24,29 +33,103 @@ import torch
 from graphtyper_tpu.ops import device_align as ref_device_align
 from graphtyper_tpu_torch.ops import device_align
 from graphtyper_tpu_torch.ops.device_align import DeviceAligner, verdicts_plain
-from test_torch_device_align_batches import synthetic_index, synthetic_rows
-from test_torch_sw_row_emulated import STUB, gxx  # noqa: F401 (fixture)
+from graphtyper_tpu_torch.tools.bench_align import verdict_gathers
+from test_torch_device_align_batches import arena_edge_index, arena_edge_rows, synthetic_index, synthetic_rows
+from test_torch_sw_row_emulated import gxx  # noqa: F401 (fixture)
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "graphtyper_tpu_torch" / "csrc" / "device_align.cu"
 BODY_END = "}  // namespace\n"
+ARENA_PAD = 64  # bytes of code 5 the harness puts after the packed arena
 
-# what the kernel bodies need beyond the row kernel's stub
-STUB_EXTRA = r"""
-using std::min;
+# what the kernel bodies need of the CUDA runtime: blocks of blockDim.x
+# threads run one after another; __syncthreads is a barrier of the block,
+# and each warp's shuffles and ballots meet at a barrier of the warp
+STUB = r"""
+#pragma once
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__
 #define __launch_bounds__(...)
 #define __restrict__
-inline dim_ blockDim{1}, gridDim{1};
+using std::max;
+using std::min;
+struct dim_ { unsigned x; };
+inline thread_local dim_ threadIdx, blockIdx;
+inline dim_ blockDim{32}, gridDim{1};
 struct uint4 { unsigned x, y, z, w; };
-template <class T> inline T __ldg(const T* p) { return *p; }
+struct int4 { int x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+inline std::atomic<long long> g_loads{0};  // __ldg calls, every thread's
+template <class T> inline T __ldg(const T* p)
+{
+  ++g_loads;
+  return *p;
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s)
+{
+  s &= 31;
+  return s ? (lo >> s) | (hi << (32 - s)) : lo;
+}
+constexpr int MAX_WARPS = 32;
+inline std::barrier<>* g_block_bar;
+inline std::barrier<>* g_warp_bar[MAX_WARPS];
+inline unsigned g_slot[MAX_WARPS][32];
+inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+inline unsigned exchange(unsigned v, int src)
+{
+  const int w = threadIdx.x / 32;
+  g_slot[w][threadIdx.x % 32] = v;
+  g_warp_bar[w]->arrive_and_wait();
+  const unsigned r = g_slot[w][src];
+  g_warp_bar[w]->arrive_and_wait();
+  return r;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src) { return (T)exchange((unsigned)v, src & 31); }
 inline unsigned __ballot_sync(unsigned, bool pred)
 {
-  g_slot[threadIdx.x % 32] = pred ? 1 : 0;
-  g_bar->arrive_and_wait();
+  const int w = threadIdx.x / 32;
+  g_slot[w][threadIdx.x % 32] = pred ? 1 : 0;
+  g_warp_bar[w]->arrive_and_wait();
   unsigned m = 0;
   for (int i = 0; i < 32; ++i)
-    m |= unsigned(g_slot[i] != 0) << i;
-  g_bar->arrive_and_wait();
+    m |= unsigned(g_slot[w][i] != 0) << i;
+  g_warp_bar[w]->arrive_and_wait();
   return m;
+}
+// run f() on every thread of `blocks` blocks of `threads` threads (a
+// multiple of 32), one block at a time
+template <class F> void run_grid(int blocks, int threads, F f)
+{
+  blockDim.x = threads;
+  gridDim.x = blocks;
+  for (int b = 0; b < blocks; ++b)
+  {
+    std::barrier<> block_bar(threads);
+    g_block_bar = &block_bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    for (int w = 0; w < threads / 32; ++w)
+    {
+      warp_bars.emplace_back(new std::barrier<>(32));
+      g_warp_bar[w] = warp_bars.back().get();
+    }
+    std::vector<std::thread> pool;
+    for (int i = 0; i < threads; ++i)
+      pool.emplace_back([&f, b, i] {
+        threadIdx.x = i;
+        blockIdx.x = b;
+        f();
+      });
+    for (auto& t : pool)
+      t.join();
+  }
 }
 """
 
@@ -58,9 +141,9 @@ HARNESS = r"""
 #include "body.inc"
 }  // namespace
 
-template <class T> std::vector<T> rd(FILE* f, size_t n)
+template <class T> std::vector<T> rd(FILE* f, size_t n, size_t extra = 0)
 {
-  std::vector<T> v(n);
+  std::vector<T> v(n + extra, T(5));
   if (n && std::fread(v.data(), sizeof(T), n, f) != n)
     std::exit(1);
   return v;
@@ -69,42 +152,44 @@ template <class T> std::vector<T> rd(FILE* f, size_t n)
 int main(int, char** argv)
 {
   FILE* f = std::fopen(argv[1], "rb");
-  int h[9];  // S, nk, n_keys, n_labels, n_ref, n_arena, key_steps, ref_steps, mode
-  if (std::fread(h, 4, 9, f) != 9)
+  int h[10];  // S, nk, n_keys, n_labels, n_ref, n_arena, arena bytes, key_steps, ref_steps, mode
+  if (std::fread(h, 4, 10, f) != 10)
     return 1;
   const int S = h[0], nk = h[1];
-  auto keys_hi = rd<uint32_t>(f, h[2]), keys_lo = rd<uint32_t>(f, h[2]);
-  auto offsets = rd<int32_t>(f, h[2] + 1);
-  auto lab_start = rd<uint32_t>(f, h[3]), lab_end = rd<uint32_t>(f, h[3]);
-  auto lab_var = rd<int32_t>(f, h[3]);
+  auto key_rec = rd<uint4>(f, h[2]);
+  auto lab_rec = rd<int4>(f, h[3]);
   auto bucket = rd<int32_t>(f, (1 << BUCKET_BITS) + 1);
-  auto ref_order = rd<uint32_t>(f, h[4]);
-  auto ref_len = rd<int32_t>(f, h[4]), ref_start = rd<int32_t>(f, h[4]);
-  auto arena = rd<uint8_t>(f, h[5]);
-  const Tables t{keys_hi.data(), keys_lo.data(), offsets.data(), lab_start.data(), lab_end.data(),
-                 lab_var.data(), bucket.data(), ref_order.data(), ref_len.data(), ref_start.data(),
-                 arena.data(), h[2], h[3], h[4], h[5], h[6], h[7]};
+  auto ref_rec = rd<int4>(f, h[4]);
+  auto arena = rd<uint8_t>(f, h[6], 64);
+  const Tables t{key_rec.data(), lab_rec.data(), bucket.data(), ref_rec.data(), arena.data(),
+                 h[2], h[3], h[4], h[5], h[7], h[8]};
   std::vector<int32_t> out;
-  if (h[8] == 0)  // the kernel over S rows
+  if (h[9] == 0)  // the kernel over S rows: 3 blocks of 2 warps stride over them
   {
     auto hi = rd<uint32_t>(f, (size_t)S * nk), lo = rd<uint32_t>(f, (size_t)S * nk);
     auto valid = rd<uint8_t>(f, (size_t)S * nk);
     auto tails = rd<uint8_t>(f, (size_t)S * TAIL_PAD);
     auto lens = rd<int32_t>(f, S);
     out.resize((size_t)S * OUT_COLS);
-    device_align_kernel(hi.data(), lo.data(), valid.data(), tails.data(), lens.data(), t,
-                        out.data(), S, nk);
+    run_grid(3, 64, [&] {
+      device_align_kernel(hi.data(), lo.data(), valid.data(), tails.data(), lens.data(), t,
+                          out.data(), S, nk);
+    });
+    const long long loads = g_loads;  // appended as two int32 words, low first
+    out.push_back((int32_t)(uint32_t)loads);
+    out.push_back((int32_t)(uint32_t)(loads >> 32));
   }
   else  // its two searches on S queries: the key's in its bucket, and chain_end + 1's
   {
     auto qh = rd<uint32_t>(f, S), ql = rd<uint32_t>(f, S), qe = rd<uint32_t>(f, S);
+    out.resize(2 * (size_t)S);
     for (int i = 0; i < S; ++i)
     {
-      const int b = (int)(qh[i] >> (32 - BUCKET_BITS));
-      out.push_back(lower_bound_u64(qh[i], ql[i], t.keys_hi, t.keys_lo, t.n_keys, t.key_steps,
-                                    t.bucket[b], t.bucket[b + 1]));
-      out.push_back(lower_bound_u64(0u, qe[i], nullptr, t.ref_order, t.n_ref, t.ref_steps, 0,
-                                    t.n_ref));
+      uint64_t q[KG] = {(uint64_t)qh[i] << 32 | ql[i]};
+      int lb[KG];
+      key_searches(t, q, 1, lb);
+      out[2 * i] = lb[0];
+      out[2 * i + 1] = ref_search(t, qe[i]);
     }
   }
   std::fclose(f);
@@ -118,6 +203,8 @@ int main(int, char** argv)
 RULES = {
     "mid_lt_hi_guard": ("less && mid < hi ? mid + 1 : lo", "less ? mid + 1 : lo"),
     "empty_slot": ("slot[j] = -1;", "slot[j] = 0;"),
+    "arena_clamp": ("clampi((int32_t)(base + (uint32_t)i), 0, t.n_arena - 1)",
+                    f"clampi((int32_t)(base + (uint32_t)i), 0, t.n_arena + {ARENA_PAD - 1})"),
 }
 
 
@@ -132,7 +219,7 @@ def build_body(directory: pathlib.Path, source: pathlib.Path, harness: str, name
         assert body.count(old) == 1, old
         body = body.replace(old, new)
     directory.mkdir(parents=True, exist_ok=True)
-    (directory / "cuda_runtime.h").write_text(STUB + STUB_EXTRA)
+    (directory / "cuda_runtime.h").write_text(STUB)
     (directory / "body.inc").write_text(body)
     (directory / "harness.cpp").write_text(harness)
     exe = directory / name
@@ -153,29 +240,43 @@ def _run(exe: pathlib.Path, arrays, n_out: int) -> np.ndarray:
     return out
 
 
+def _aligner(idx):
+    return DeviceAligner(types.SimpleNamespace(**idx), "cpu")
+
+
 @pytest.fixture(scope="module")
 def index():
     idx = synthetic_index(0)
-    dal = DeviceAligner(types.SimpleNamespace(**idx), "cpu")
-    return idx, dal
+    return idx, _aligner(idx)
+
+
+@pytest.fixture(scope="module")
+def edge_index():
+    idx = arena_edge_index(0)
+    return idx, _aligner(idx)
 
 
 def _header(dal, S, nk, mode):
-    t = dal.tables
-    return np.array([S, nk, dal.n_keys, t[3].shape[0], dal.n_ref, t[-1].shape[0], dal.key_steps,
-                     dal.ref_steps, mode], np.int32)
+    return np.array([S, nk, dal.n_keys, dal.n_labels, dal.n_ref, dal.n_arena, dal.packed[-1].shape[0],
+                     dal.key_steps, dal.ref_steps, mode], np.int32)
 
 
-def _tables(dal):
-    return [t.numpy() for t in dal.tables]
+def _packed(dal):
+    return [t.numpy() for t in dal.packed]
+
+
+def _emulate_verdicts_and_loads(exe, dal, rows):
+    """The body's verdict rows and the number of its __ldg calls."""
+    hi, lo, valid, tails, lens = rows
+    S, nk = hi.shape
+    out = _run(exe, [_header(dal, S, nk, 0), *_packed(dal), hi, lo, valid, tails, lens],
+               S * device_align.OUT_COLS + 2)
+    loads = int(out[-2].astype(np.uint32)) | int(out[-1].astype(np.uint32)) << 32
+    return out[:-2].reshape(S, device_align.OUT_COLS), loads
 
 
 def _emulate_verdicts(exe, dal, rows):
-    hi, lo, valid, tails, lens = rows
-    S, nk = hi.shape
-    out = _run(exe, [_header(dal, S, nk, 0), *_tables(dal), hi, lo, valid, tails, lens],
-               S * device_align.OUT_COLS)
-    return out.reshape(S, device_align.OUT_COLS)
+    return _emulate_verdicts_and_loads(exe, dal, rows)[0]
 
 
 def _plain(dal, rows):
@@ -197,6 +298,25 @@ def test_emulated_kernel_matches_plain(emulated, index, nk):
     assert (got[:, 0] & 1).sum() > 0  # some rows are clean
 
 
+@pytest.mark.parametrize("nk", [2, 4, 8])
+def test_emulated_kernel_matches_plain_at_the_arena_edges(emulated, edge_index, nk):
+    idx, dal = edge_index
+    rows = arena_edge_rows(idx, nk, seed=nk)
+    np.testing.assert_array_equal(_emulate_verdicts(emulated, dal, rows), _plain(dal, rows))
+
+
+@pytest.mark.parametrize("nk", [2, 4, 8])
+@pytest.mark.parametrize("batch", ["adversarial", "arena_edge"])
+def test_verdict_gathers_counts_the_kernels_loads(emulated, index, edge_index, batch, nk):
+    """verdict_gathers, the count behind the "gather" line's time at the
+    ceiling, is the body's own number of table loads, also for rows whose
+    tails read byte by byte past either end of the arena."""
+    idx, dal = index if batch == "adversarial" else edge_index
+    rows = (synthetic_rows if batch == "adversarial" else arena_edge_rows)(idx, nk, seed=nk)
+    got, loads = _emulate_verdicts_and_loads(emulated, dal, rows)
+    assert loads == verdict_gathers(dal, rows, got, len(rows[-1]))
+
+
 def _search_queries(idx, dal):
     """The batch's kmer keys and the chain ends + 1 of its labels (uint32),
     paired up to one length."""
@@ -205,6 +325,10 @@ def _search_queries(idx, dal):
     ends = (dal.tables[4].numpy().astype(np.uint64) + 1).astype(np.uint32)
     qe = np.resize(ends, qh.shape[0])
     return qh, ql, qe
+
+
+def _emulate_searches(exe, dal, qh, ql, qe):
+    return _run(exe, [_header(dal, len(qh), 4, 1), *_packed(dal), qh, ql, qe], 2 * len(qh))
 
 
 def _reference_search(dal, qh, ql, qe):
@@ -219,10 +343,32 @@ def _reference_search(dal, qh, ql, qe):
     return np.stack([np.asarray(pos), np.asarray(r)], axis=1).reshape(-1)
 
 
-def test_emulated_searches_match_reference(emulated, index):
+def _true_lower_bounds(dal, qh, ql, qe):
+    """The first index in each search's range whose key is not below the
+    query, else the range's end: numpy's searchsorted."""
+    keys = (dal.tables[0].numpy().astype(np.uint64) << np.uint64(32)) | dal.tables[1].numpy()
+    bucket = dal.tables[6].numpy().astype(np.int64)
+    q = (qh.astype(np.uint64) << np.uint64(32)) | ql
+    b = (qh >> np.uint32(32 - device_align.BUCKET_BITS)).astype(np.int64)
+    pos = [lo + np.searchsorted(keys[lo:hi], x) for x, lo, hi in zip(q, bucket[b], bucket[b + 1])]
+    r = np.searchsorted(dal.tables[7].numpy(), qe)
+    return np.stack([np.array(pos), r], axis=1).reshape(-1)
+
+
+def test_emulated_searches_are_the_true_lower_bounds(emulated, index):
+    """The fixed-step searches have converged when their steps run out: the
+    kernel's index is the true lower_bound and the JAX package's, for keys
+    past their bucket, the key 0 of padded rows and empty buckets too."""
     idx, dal = index
     qh, ql, qe = _search_queries(idx, dal)
-    got = _run(emulated, [_header(dal, len(qh), 4, 1), *_tables(dal), qh, ql, qe], 2 * len(qh))
+    qh = np.concatenate([qh, [0, 0xFFFFFFFF, 0x12345678]]).astype(np.uint32)
+    ql = np.concatenate([ql, [0, 0xFFFFFFFF, 0]]).astype(np.uint32)
+    qe = np.concatenate([qe, [0, 0xFFFFFFFF, 1]]).astype(np.uint32)
+    bucket = dal.tables[6].numpy()
+    b = qh >> np.uint32(32 - device_align.BUCKET_BITS)
+    assert (bucket[b] == bucket[b + 1]).any()  # some queries fall in empty buckets
+    got = _emulate_searches(emulated, dal, qh, ql, qe)
+    np.testing.assert_array_equal(got, _true_lower_bounds(dal, qh, ql, qe))
     np.testing.assert_array_equal(got, _reference_search(dal, qh, ql, qe))
 
 
@@ -230,8 +376,7 @@ def test_flipped_guard_changes_a_search(gxx, index, tmp_path):
     idx, dal = index
     exe = build_body(tmp_path, SOURCE, HARNESS, "flipped", RULES["mid_lt_hi_guard"])
     qh, ql, qe = _search_queries(idx, dal)
-    got = _run(exe, [_header(dal, len(qh), 4, 1), *_tables(dal), qh, ql, qe], 2 * len(qh))
-    assert (got != _reference_search(dal, qh, ql, qe)).any()
+    assert (_emulate_searches(exe, dal, qh, ql, qe) != _reference_search(dal, qh, ql, qe)).any()
 
 
 def test_flipped_empty_slot_changes_the_verdicts(gxx, index, tmp_path):
@@ -239,3 +384,14 @@ def test_flipped_empty_slot_changes_the_verdicts(gxx, index, tmp_path):
     exe = build_body(tmp_path, SOURCE, HARNESS, "flipped", RULES["empty_slot"])
     rows = synthetic_rows(idx, 4, seed=4)
     assert (_emulate_verdicts(exe, dal, rows) != _plain(dal, rows)).any()
+
+
+def test_flipped_arena_clamp_changes_meta_at_the_arena_end(gxx, edge_index, tmp_path):
+    idx, dal = edge_index
+    exe = build_body(tmp_path, SOURCE, HARNESS, "flipped", RULES["arena_clamp"])
+    rows = arena_edge_rows(idx, 4, seed=4)
+    want = _plain(dal, rows)
+    changed = _emulate_verdicts(exe, dal, rows)[:, 0] != want[:, 0]
+    # the rows that end at the reference's last base (odd rows) read past
+    # the arena's end; the flip shows on their meta column only
+    assert changed[1::2].any() and not changed[0::2].any()

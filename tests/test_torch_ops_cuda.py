@@ -3,8 +3,10 @@
 hold to the JAX package): scoring `apply_tier` and the pileup's
 `segment_counters`; and the verdict and seed-probe kernels
 (csrc/device_align.cu, csrc/seed_probe.cu) against their plain PyTorch
-versions on the card, on the synthetic adversarial batches and on the
-engine's rows of a small cohort. Integer outputs, tolerance 0. Skips
+versions on the card, on the synthetic adversarial batches, on the
+arena-edge batch (verdicts) and at nk = 40 (seed probes, two chunks of 32
+kmers), and on the engine's rows of a small cohort. Integer outputs,
+tolerance 0. Skips
 without a GPU; run on the card with
   python -m pytest tests/test_torch_ops_cuda.py -q
 """
@@ -78,7 +80,10 @@ def engine_rows(tmp_path_factory):
     lib = get_lib()
     native_caller._setup_lib(lib)
     entry = native_caller._get_prep(lib, sim.sams, GenomicRegion.parse(spec), 3840, False)
-    return NativeAligner(graph, index), (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+    try:
+        return NativeAligner(graph, index), (*entry.fetch_kmers(lib), *entry.fetch_tails(lib))
+    finally:
+        entry.release(lib)
 
 
 def _verdicts_both(cuda, na, rows):
@@ -109,6 +114,17 @@ def test_device_align_kernel_matches_plain_on_synthetic_rows(cuda, synthetic, nk
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("nk", [2, 4, 8])
+def test_device_align_kernel_matches_plain_at_the_arena_edges(cuda, nk):
+    import types
+
+    from test_torch_device_align_batches import arena_edge_index, arena_edge_rows
+
+    idx = arena_edge_index(0)
+    got, want = _verdicts_both(cuda, types.SimpleNamespace(**idx), arena_edge_rows(idx, nk, seed=nk))
+    assert torch.equal(got, want)
+
+
 def test_device_align_kernel_matches_plain_on_engine_rows(cuda, engine_rows):
     na, rows = engine_rows
     got, want = _verdicts_both(cuda, na, rows)
@@ -129,7 +145,7 @@ def _probe_both(cuda, rows, keys, bits):
 
 
 @pytest.mark.parametrize("bits", [14, 24])
-@pytest.mark.parametrize("nk", [2, 4, 8])
+@pytest.mark.parametrize("nk", [2, 4, 8, 40])
 def test_seed_probe_kernel_matches_plain_on_synthetic_rows(cuda, synthetic, nk, bits):
     from test_torch_device_align_batches import synthetic_rows
 

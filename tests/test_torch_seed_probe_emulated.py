@@ -1,10 +1,13 @@
 """The seed-probe kernel's body (csrc/seed_probe.cu, the code before the end
-of its anonymous namespace) compiled for the CPU with g++ and run as a
-lockstep emulation of one warp: 32 threads that meet at a barrier around
-every __ballot_sync, over every output word. It is held exactly to
-`probe_bits_plain` on the synthetic adversarial batches at nk = 2, 4 and 8,
-and with the ballot's lane order reversed it must fail. The kernel itself
-is held on the card (tests/test_torch_ops_cuda.py)."""
+of its anonymous namespace) compiled for the CPU with g++ and run block by
+block as a lockstep emulation: each warp's 32 threads meet at a barrier
+around every __shfl_sync and __ballot_sync, and a block's threads at
+__syncthreads after the mask table is filled. Two blocks of two warps
+stride over the rows. It is held exactly to `probe_bits_plain` on the
+synthetic adversarial batches at nk = 2, 4 and 8, and at nk = 40, whose
+second chunk of 32 kmers fills words 97 to 121; with the ballot's lane
+order reversed it must fail. The kernel itself is held on the card
+(tests/test_torch_ops_cuda.py)."""
 
 import pathlib
 
@@ -18,12 +21,11 @@ from test_torch_device_align_emulated import _run, build_body
 from test_torch_sw_row_emulated import gxx  # noqa: F401 (fixture)
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "graphtyper_tpu_torch" / "csrc" / "seed_probe.cu"
-LANE_ORDER = ("* 32 + lane;", "* 32 + (31 - lane);")
+LANE_ORDER = ("const int b = 32 * w0 + lane;", "const int b = 32 * w0 + (31 - lane);")
 
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include <vector>
 #include "cuda_runtime.h"
 #include "body.inc"
@@ -45,21 +47,9 @@ int main(int, char** argv)
   std::fclose(f);
   const int prow = (nk * PROBES + 31) / 32;
   std::vector<uint32_t> out((size_t)S * prow);
-  // one block of one warp walks every word
-  blockDim.x = 32;
-  gridDim.x = 1;
-  std::barrier<> bar(32);
-  g_bar = &bar;
-  std::vector<std::thread> lanes;
-  for (int l = 0; l < 32; ++l)
-    lanes.emplace_back([&, l] {
-      threadIdx.x = l;
-      blockIdx.x = 0;
-      seed_probe_kernel(hi.data(), lo.data(), valid.data(), bitset.data(), out.data(), S * prow, nk,
-                        prow, bits);
-    });
-  for (auto& t : lanes)
-    t.join();
+  run_grid(2, 64, [&] {
+    seed_probe_kernel(hi.data(), lo.data(), valid.data(), bitset.data(), out.data(), S, nk, prow, bits);
+  });
   f = std::fopen(argv[2], "wb");
   std::fwrite(out.data(), 4, out.size(), f);
   std::fclose(f);
@@ -95,7 +85,7 @@ def emulated(gxx, tmp_path_factory):
     return build_body(tmp_path_factory.mktemp("seed_probe"), SOURCE, HARNESS, "seed_probe_emulated")
 
 
-@pytest.mark.parametrize("nk", [2, 4, 8])
+@pytest.mark.parametrize("nk", [2, 4, 8, 40])
 def test_emulated_kernel_matches_plain(emulated, batch, nk):
     idx, bits, bitset = batch
     rows = synthetic_rows(idx, nk, seed=10 + nk, n=120)
