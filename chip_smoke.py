@@ -73,6 +73,29 @@ Phases, one line each, none of them caught:
               table the size of the seed bitset and of the packed verdict
               tables: the measured gather ceiling, and each kernel's loads
               over it
+  8. mesh     graphtyper_tpu_torch.entry.dryrun_multichip(4): the whole
+              genotype pipeline on an 8-sample 50 kb cohort with every call
+              iteration's scoring over a 2 x 2 mesh of the card taken four
+              times, against the single-device run (equal records); the
+              scoring rows of each shard
+     dist     two child processes joined by a gloo process group at
+              127.0.0.1, both on the card with GT_DEVICE_ALIGN=on:
+              genotype_distributed (samples sharded over the two) plain and
+              with GT_REP_SHARD=1, host 0's VCF md5 equal to this process's
+              single-process run; then the CLI's genotype --num_hosts 2
+              --host_id 0|1 --coordinator on two 50 kb regions, the union of
+              outputs equal to the single-process CLI; each child's sw_rot
+              and device_align launches above 0
+  9. forward  genotype_forward (ops/genotype_step.py) on the card against the
+              same function on the CPU, exactly, at entry()'s 256 x 160 x 64
+              x 8 and bench.py's 8192 x 160 x 512 x 16; CUDA-event ms a
+              step, reads/s, mismatch_matrix and torch._int_mm alone, the
+              bound, the CUDA kernels a step launches (torch.profiler)
+     prefetch parallel/prefetch.py on the card: prefetch_to_device stages
+              six batches of genotype_forward inputs through pinned memory
+              on a side stream, and pipelined_map decodes six more on
+              threads; each batch on cuda, in order, and genotype_forward
+              on it at once equal to the CPU's on the same arrays
 The SW batches come from tests/test_torch_sw_batches.py, the verdict and
 seed batches from tests/test_torch_device_align_batches.py, the HLA panel
 from tests/test_torch_subcommand_data.py. VCF md5s are taken with the
@@ -81,7 +104,8 @@ hold the port's CPU
 path to the JAX package byte for byte (tests/test_torch_slice.py,
 tests/test_torch_sw.py, tests/test_torch_device_align.py,
 tests/test_torch_seed_probe.py, tests/test_torch_sv.py,
-tests/test_torch_camou_hla.py, tests/test_torch_cli_tools.py).
+tests/test_torch_camou_hla.py, tests/test_torch_cli_tools.py,
+tests/test_torch_forward.py, tests/test_torch_parallel*.py).
 Then one JSON line of the kernels (launches on their paths, the new
 subcommands' included, error, times,
 bound; for sw_rot also its times and bounds per shape, the empty launch,
@@ -183,6 +207,18 @@ VERDICT_OPS = dict(row=25, kmer=20, step=7, label=8, node=12, tail_base=6)
 # two xors, two multiplies and an add for the hash, the shift to the index,
 # the word index and bit shift, the bit's and, and its pack into the word
 SEED_OPS_PER_PROBE = 10
+# the fused genotyping step (ops/genotype_step.py) at entry()'s shape and
+# bench.py's kernel_secondary shape (bench.py:266), reads x length x
+# haplotype windows x alleles
+FORWARD_SHAPES = (("entry", (256, 160, 64, 8)), ("bench", (8192, 160, 512, 16)))
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# tests/parallel/test_distributed_e2e.py's cohort, sample-sharded over two
+# processes; and a 100 kb cohort of two 50 kb regions for the CLI's
+# --num_hosts region sharding (error rate 0.01: both regions realign)
+DIST_E2E = dict(region_length=50_000, coverage=14.0, n_samples=4, seed=31, out_format="bam")
+DIST_CLI = dict(region_length=100_000, coverage=8.0, n_samples=2, seed=33, error_rate=0.01, out_format="bam")
+DIST_TIMEOUT_S = 300
 
 
 def _md5(paths):
@@ -1014,6 +1050,280 @@ def gather_phase(dev, verdict, seed):
     return rates
 
 
+def forward_inputs(np, name, R, L, H, A):
+    """entry()'s inputs, or bench.py's kernel_secondary inputs (bench.py:265-271)."""
+    from graphtyper_tpu_torch.entry import example_inputs
+
+    if name == "entry":
+        return example_inputs(R, L, H, A)
+    rng = np.random.default_rng(0)
+    haps = rng.integers(0, 4, size=(H, L)).astype(np.uint8)
+    reads = haps[rng.integers(0, H, size=R)].copy()
+    hap_allele = np.zeros((H, A), dtype=np.float32)
+    hap_allele[np.arange(H), rng.integers(0, A, size=H)] = 1.0
+    eps = rng.integers(4, 9, size=R).astype(np.float32)
+    return reads, haps, hap_allele, eps
+
+
+def forward_bound(R, L, H, A, sm_clock_mhz, n_sm):
+    """(ms, bound_by) of one genotype_forward step: the larger of the bytes
+    (inputs read once, delta and B written once) at the HBM rate and the
+    slowest of its operation kinds at that kind's peak: the two int8
+    products (2 R H 4L and 2 R H L) on the tensor cores, the R x H int32
+    work (the subtraction, the row minimum, two compares, the and) on the
+    int32 lanes, and the float32 products (2 R H A, 2 R A A, 2 R A) on the
+    float32 lanes."""
+    byte_ms = (R * L + H * L + H * A * 4 + R * 4 + A * A * 4 + R * A * 4) / HBM_BYTES_PER_S * 1e3
+    op_ms = max(2 * R * H * 5 * L / INT8_OPS_PER_S * 1e3,
+                5 * R * H / (n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6) * 1e3,
+                (2 * R * H * A + 2 * R * A * A + 2 * R * A) / FP32_OPS_PER_S * 1e3)
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def _cuda_kernels_per_call(torch, fn):
+    """CUDA kernels one call of fn launches, by torch.profiler (None when the
+    profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def forward_phase(torch, np, dev, sm_clock, n_sm):
+    """genotype_forward on the card against the same function on the CPU,
+    exactly (integer eps), at entry()'s shape and bench.py's; CUDA-event ms
+    a step, reads/s, mismatch_matrix alone and the int8 product alone
+    (torch._int_mm on the padded one-hot operands), the bound, and the CUDA
+    kernels a step launches (torch.profiler)."""
+    from graphtyper_tpu_torch.ops import hamming
+    from graphtyper_tpu_torch.ops.genotype_step import genotype_forward
+
+    out = {}
+    for name, (R, L, H, A) in FORWARD_SHAPES:
+        arrays = forward_inputs(np, name, R, L, H, A)
+        cpu = [torch.from_numpy(a) for a in arrays]
+        card = [t.to(dev) for t in cpu]
+        want, got = genotype_forward(*cpu), genotype_forward(*card)
+        for w, g, what in zip(want, got, ("delta", "B")):
+            if g.device.type != "cuda" or not torch.equal(g.cpu(), w):
+                raise AssertionError(f"forward {name}: {what} on the card differs from the CPU's")
+        if float(got[1].sum()) <= 0:
+            raise AssertionError(f"forward {name}: no read explains an allele")
+        step_ms = _time_ms(lambda: genotype_forward(*card))
+        mm_ms = _time_ms(lambda: hamming.mismatch_matrix(card[0], card[1]))
+        a, b = hamming.int_mm_operands(hamming.one_hot_acgt(card[0]).reshape(R, -1),
+                                       hamming.one_hot_acgt(card[1]).reshape(H, -1))
+        lib_ms = _time_ms(lambda: torch._int_mm(a, b))
+        bound_ms, bound_by = forward_bound(R, L, H, A, sm_clock, n_sm)
+        kernels = _cuda_kernels_per_call(torch, lambda: genotype_forward(*card))
+        out[name] = dict(shape=(R, L, H, A), ms=step_ms, reads_per_s=R / step_ms * 1e3, mismatch_ms=mm_ms,
+                         int_mm_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, kernels_per_step=kernels)
+        print(f"forward {name}: genotype_forward {R} reads x {L} x {H} windows x {A} alleles on cuda equals the"
+              f" CPU exactly; {step_ms:.4f} ms a step (CUDA events) = {R / step_ms * 1e3:.1f} reads/s,"
+              f" mismatch_matrix {mm_ms:.4f} ms, torch._int_mm alone {lib_ms:.4f} ms; bound {bound_ms:.6f} ms"
+              f" ({bound_by}); {kernels if kernels is not None else 'not measured'} CUDA kernels a step"
+              f" (torch.profiler)", flush=True)
+    return out
+
+
+PREFETCH_BATCHES = 6
+
+
+def prefetch_phase(torch, np, dev):
+    """parallel/prefetch.py on the card: each staged batch is read by
+    genotype_forward as soon as it is handed out (so a copy that had not
+    finished, or memory given out again too early, shows as a wrong delta);
+    the batches' order, device and results against the CPU, exactly."""
+    from graphtyper_tpu_torch.entry import example_inputs
+    from graphtyper_tpu_torch.ops.genotype_step import genotype_forward
+    from graphtyper_tpu_torch.parallel.prefetch import pipelined_map, prefetch_to_device
+
+    def batch(i):
+        return {"i": np.array([i], dtype=np.int64),
+                "args": example_inputs(R=4096, L=160, H=512, A=16, seed=100 + i)}
+
+    want = [genotype_forward(*(torch.from_numpy(a) for a in batch(i)["args"])) for i in range(2 * PREFETCH_BATCHES)]
+
+    def check(i, staged_i, args, got, where):
+        if int(staged_i) != i or not all(t.device.type == "cuda" for t in (*args, *got)):
+            raise AssertionError(f"prefetch: {where} batch {i} out of order or not on the card")
+        for w, g, what in zip(want[i], got, ("delta", "B")):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"prefetch: {where} batch {i}: {what} differs from the CPU's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    for staged in prefetch_to_device((batch(i) for i in range(PREFETCH_BATCHES)), size=2, device=dev):
+        results.append((staged["i"], staged["args"], genotype_forward(*staged["args"])))
+    torch.cuda.synchronize()
+    staged_ms = (time.perf_counter() - t0) * 1e3
+    for i, (staged_i, args, got) in enumerate(results):
+        check(i, staged_i, args, got, "prefetch_to_device")
+    if len(results) != PREFETCH_BATCHES:
+        raise AssertionError(f"prefetch: {len(results)} of {PREFETCH_BATCHES} batches")
+
+    def on_card(i, args):
+        card = [torch.from_numpy(a).to(dev) for a in args]
+        return torch.from_numpy(i).to(dev), card, genotype_forward(*card)
+
+    piped = pipelined_map(lambda k: tuple(batch(PREFETCH_BATCHES + k).values()), on_card, n_batches=PREFETCH_BATCHES)
+    for k, (staged_i, args, got) in enumerate(piped):
+        check(PREFETCH_BATCHES + k, staged_i, args, got, "pipelined_map")
+    print(f"prefetch: prefetch_to_device staged {PREFETCH_BATCHES} batches of 4096 x 160 reads on {dev} (pinned,"
+          f" side stream) in order, {staged_ms:.3f} ms with their genotype_forward steps (host clock);"
+          f" pipelined_map {PREFETCH_BATCHES} more; every step equal to the CPU's", flush=True)
+    return dict(ms=staged_ms)
+
+
+def mesh_phase(dev):
+    """entry.dryrun_multichip(4): the whole genotype pipeline with every call
+    iteration's scoring over a 2 x 2 mesh of `dev` taken four times, against
+    the single-device run (equal record lines and discovery sites), then the
+    fused step over the mesh against the unsharded step."""
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.entry import dryrun_multichip
+
+    counters.reset()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4, device=dev)
+    wall = time.perf_counter() - t0
+    seen = counters.totals()
+    if dev.type == "cuda":
+        _no_plain(seen, "mesh")
+    print(f"mesh: dryrun_multichip(4) on {dev} in {wall:.3f} s: {out['n_records']} records equal, scoring rows"
+          f" per shard {out['shard_rows']}; counters {json.dumps(seen, sort_keys=True)}", flush=True)
+    return dict(wall=wall, counters=seen, **out)
+
+
+DIST_CHILD = r"""
+import contextlib, io, json, os, sys, time
+rank, device, port1, port2, meta = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], json.loads(sys.argv[5])
+sys.path.insert(0, meta["repo"])
+from graphtyper_tpu_torch import cli, counters
+from graphtyper_tpu_torch.parallel import distributed
+runs = {}
+distributed.initialize(f"127.0.0.1:{port1}", 2, rank)
+for rep in ("0", "1"):
+    os.environ["GT_REP_SHARD"] = rep
+    counters.reset()
+    t0 = time.perf_counter()
+    out = distributed.genotype_distributed(meta["fasta"], meta["sams"], meta["region"], meta[f"out{rep}"], device)
+    runs[f"rep_shard={rep}"] = dict(out=out, wall=time.perf_counter() - t0, counters=counters.totals())
+distributed.shutdown()
+os.environ.pop("GT_REP_SHARD")
+counters.reset()
+printed = io.StringIO()
+t0 = time.perf_counter()
+with contextlib.redirect_stdout(printed):
+    rc = cli.main(["genotype", meta["cli_fasta"], "--region_file", meta["region_file"], "-O", meta["cli_out"],
+                   "--device", device, "--threads", "4", "--num_hosts", "2", "--host_id", str(rank),
+                   "--coordinator", f"127.0.0.1:{port2}", *meta["cli_sams"]])
+runs["cli"] = dict(out=printed.getvalue().split(), wall=time.perf_counter() - t0, counters=counters.totals())
+assert rc == 0, rc
+print("DIST_CHILD " + json.dumps(runs))
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_phase(work, dev):
+    """Two child processes joined by a gloo process group at 127.0.0.1, both
+    on `dev` with GT_DEVICE_ALIGN=on: genotype_distributed on DIST_E2E's
+    cohort, plain and with GT_REP_SHARD=1, whose host-0 VCF must equal this
+    process's single-process run on `dev`; then the CLI's genotype
+    --num_hosts 2 --host_id 0|1 --coordinator on DIST_CLI's two regions,
+    whose union must equal this process's single-process CLI. Each child's
+    sw_rot and device_align launches (on the card) must be above 0."""
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.pipeline.genotype import genotype
+    from graphtyper_tpu_torch.simulate import SimConfig, simulate_cohort
+
+    root = os.path.join(work, "dist")
+    e2e, two = SimConfig(**DIST_E2E), SimConfig(**DIST_CLI)
+    sim = simulate_cohort(os.path.join(root, "e2e"), e2e)
+    sim2 = simulate_cohort(os.path.join(root, "two"), two)
+    region = f"{e2e.chrom}:1-{e2e.region_length}"
+    region_file = os.path.join(root, "regions.txt")
+    with open(region_file, "w") as f:
+        f.write(f"{two.chrom}:1-50000\n{two.chrom}:50001-100000\n")
+
+    t0 = time.perf_counter()
+    os.environ["GT_DEVICE_ALIGN"] = "on"
+    try:
+        counters.reset()
+        single = _md5([genotype(sim.fasta, sim.sams, region, os.path.join(root, "single"), dev)])
+        single_seen = counters.totals()
+    finally:
+        os.environ.pop("GT_DEVICE_ALIGN")
+    single_cli, cli_seen, _ = _cli_in_process(
+        ["genotype", sim2.fasta, "--region_file", region_file, "-O", os.path.join(root, "single_cli"),
+         "--device", str(dev), "--threads", "4", *sim2.sams], "on")
+    single_wall = time.perf_counter() - t0
+
+    meta = dict(repo=HERE, fasta=sim.fasta, sams=sim.sams, region=region, cli_fasta=sim2.fasta,
+                cli_sams=sim2.sams, region_file=region_file, cli_out=os.path.join(root, "cli"),
+                out0=os.path.join(root, "dist0"), out1=os.path.join(root, "dist1"))
+    env = dict(os.environ, GT_DEVICE_ALIGN="on", GLOO_SOCKET_IFNAME="lo")
+    ports = [str(_free_port()), str(_free_port())]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_CHILD, str(r), str(dev), *ports, json.dumps(meta)],
+                              cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=DIST_TIMEOUT_S))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    children = []
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        lines = [line for line in stdout.splitlines() if line.startswith("DIST_CHILD ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"dist: child {r} exited {p.returncode}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        children.append(json.loads(lines[-1][len("DIST_CHILD "):]))
+    for rep in ("0", "1"):
+        runs = [c[f"rep_shard={rep}"] for c in children]
+        if runs[1]["out"] is not None or runs[0]["out"] is None or _md5([runs[0]["out"]]) != single:
+            raise AssertionError(f"dist: genotype_distributed (GT_REP_SHARD={rep}) differs from the single run:"
+                                 f" {runs[0]['out']}")
+    cli_files = sorted(p for c in children for p in c["cli"]["out"])
+    if [os.path.relpath(p, meta["cli_out"]) for p in cli_files] != [
+            os.path.relpath(p, os.path.join(root, "single_cli")) for p in single_cli] or _md5(cli_files) != _md5(single_cli):
+        raise AssertionError(f"dist: the CLI's --num_hosts 2 outputs differ from the single run: {cli_files}")
+    launches = []
+    for r, c in enumerate(children):
+        total = {k: sum(run["counters"].get(k, 0) for run in c.values()) for k in ("sw_rot", "device_align")}
+        launches.append(total)
+        if dev.type == "cuda":
+            for run in c.values():
+                _no_plain(run["counters"], f"dist child {r}")
+            if min(total.values()) <= 0:
+                raise AssertionError(f"dist: child {r} launched no sw_rot or no device_align: {total}")
+    print(f"dist: two processes (gloo, 127.0.0.1) on {dev} with GT_DEVICE_ALIGN=on in {wall:.3f} s (single-process"
+          f" runs {single_wall:.3f} s): genotype_distributed on {e2e.region_length // 1000} kb, {e2e.n_samples} samples,"
+          f" {sim.n_reads} reads, plain and GT_REP_SHARD=1, host 0's md5 {single} == single process; CLI --num_hosts 2"
+          f" on two 50 kb regions: {len(cli_files)} VCFs, md5 {_md5(cli_files)} == single process; per child"
+          f" sw_rot / device_align launches {launches}; walls " + json.dumps(
+              [{k: round(v["wall"], 3) for k, v in c.items()} for c in children])
+          + f"; single run counters {json.dumps(single_seen, sort_keys=True)}, CLI {json.dumps(cli_seen, sort_keys=True)}",
+          flush=True)
+    return dict(wall=wall, launches=launches, children=children)
+
+
 def main() -> int:
     import torch
 
@@ -1032,6 +1342,12 @@ def main() -> int:
                               capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
     print(smi("name,power.limit"))
+    walls, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = now - last[0]
+        last[0] = now
     sm_clock = float(smi("clocks.max.sm").split()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"card: torch {torch.__version__}, torch.version.cuda {torch.version.cuda},"
@@ -1049,6 +1365,7 @@ def main() -> int:
     engine = engine_path()
     print(f"engine: built {os.path.relpath(engine, HERE)} in {time.perf_counter() - t0:.3f} s",
           flush=True)
+    lap("build")
 
     dev = torch.device("cuda")
     one = torch.zeros(1, device=dev)
@@ -1067,34 +1384,54 @@ def main() -> int:
     row = row_phase(torch, np, dev, rot["max_abs_err"], bound, floor)
     rows = rows_phase(torch, np, dev, band_rows)
     realign = realign_phase(torch, np, dev)
+    lap("kernel, row, rows, realign")
     row_launches = bench_phase("--row")["launches"].get("sw_row", 0)
     bench_phase("--rot")
+    lap("bench")
     rot_launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         sims = {}
         for name, sim_kw in SLICES:
             seen, *sims[name] = slice_phase(work, name, sim_kw)
             rot_launches += seen["sw_rot"]
-        t0 = time.perf_counter()
+            lap(f"slice {name}")
         pools = pools_phase(work)
-        print(f"pools: took {time.perf_counter() - t0:.3f} s", flush=True)
+        lap("pools")
         align = align_phase(torch, np, work, dev)
-        t0 = time.perf_counter()
+        lap("align")
         sv_phase(work)
+        lap("sv")
         camou = camou_phase(work)
+        lap("camou")
         hla_phase(work)
+        lap("hla")
         discover = discover_phase(work, *sims["sw"])
-        print(f"subcommands: sv, camou, hla and discover took {time.perf_counter() - t0:.3f} s", flush=True)
+        lap("discover")
+        mesh = mesh_phase(dev)
+        lap("mesh")
+        dist = dist_phase(work, dev)
+        lap("dist")
     for runs in (pools, camou, discover):
         rot_launches += sum(seen.get("sw_rot", 0) for seen, _ in runs.values())
     for runs in (pools, camou):
         align["launches"]["device_align"] += sum(seen.get("device_align", 0) for seen, _ in runs.values())
+    rot_launches += mesh["counters"].get("sw_rot", 0)
+    for child in dist["launches"]:
+        rot_launches += child["sw_rot"]
+        align["launches"]["device_align"] += child["device_align"]
     if row_launches <= 0:
         raise AssertionError("tools.bench_sw --row did not launch the row kernel")
     inputs = kernel_inputs(align)
     verdict = verdict_phase(torch, np, dev, inputs, sm_clock, n_sm)
     seed = seed_phase(torch, np, dev, inputs, sm_clock, n_sm)
     gather = gather_phase(dev, verdict, seed)
+    lap("verdict, seed, gather")
+    forward_phase(torch, np, dev, sm_clock, n_sm)
+    lap("forward")
+    prefetch_phase(torch, np, dev)
+    lap("prefetch")
+    print("walls: each phase's seconds, host clock: " + json.dumps({k: round(v, 3) for k, v in walls.items()})
+          + f"; total {sum(walls.values()):.3f} s", flush=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "graphtyper_tpu"))
     if loaded:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")

@@ -14,11 +14,15 @@ Entry points:
         discover and call run on --device, cuda by default)
     python -m graphtyper_tpu_torch.tools.bench_sw [--row|--rot]
     python -m graphtyper_tpu_torch.tools.bench_sv [--device cpu]
+    graphtyper_tpu_torch.entry.entry() / dryrun_multichip(n)   (the fused
+        genotype_forward step, and the pipeline with mesh-sharded scoring)
 
-Not ported yet: the JAX package's parallel/ (multi-host and mesh), the
-genotype_forward ops, and the library-only modules typer/haplotype_extractor,
-typer/variant_map, io/crai, io/cram_writer and utils/simulate_indep, which
-no subcommand reaches (ROADMAP.md).
+parallel/ runs the port across processes (torch.distributed, gloo:
+region sharding, the sample-sharded genotype_distributed, the rep-sharded
+align exchange) and across the devices of a mesh (the sharded scoring
+apply and genotyping step). Not ported yet: the library-only modules
+typer/haplotype_extractor, typer/variant_map, io/crai, io/cram_writer and
+utils/simulate_indep, which no subcommand reaches (ROADMAP.md).
 
 Device options of `graphtyper_tpu_torch.config.Options`, as the port reads
 them: `device_sw` and `device_discovery` take "auto" and "on" as one value,

@@ -9,8 +9,9 @@ when there is no GPU; `--device cpu` runs the plain PyTorch versions).
 genotype_lr, popvcf, construct, check, index, bamshrink, vcf_break_down,
 vcf_concatenate and vcf_merge are host-only and take no `--device`, as in
 the JAX package. Its option helpers are copied. The multi-host flags of
-`genotype` raise NotImplementedError until the parallel slice is ported
-(ROADMAP.md).
+`genotype` (--num_hosts, --host_id, --coordinator) shard the regions over
+processes (parallel/distributed.py); with --coordinator host:port the
+processes also join one gloo process group there.
 """
 
 from __future__ import annotations
@@ -168,9 +169,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log", default="", help="Log file ('-' for stderr)")
     p.add_argument("--no_bamshrink", action="store_true")
     p.add_argument("--num_hosts", type=int, default=0,
-                   help="Multi-host region sharding (not ported yet)")
-    p.add_argument("--host_id", type=int, default=None, help="(not ported yet)")
-    p.add_argument("--coordinator", default=None, help="(not ported yet)")
+                   help="Shard regions across this many hosts (multi-host run)")
+    p.add_argument("--host_id", type=int, default=None,
+                   help="This host's id in a multi-host run (0-based)")
+    p.add_argument("--coordinator", default=None,
+                   help="torch.distributed (gloo) rendezvous address host:port; host 0 listens there")
     p.add_argument("--no_decompose", action="store_true")
     p.add_argument("--no_cleanup", action="store_true")
     p.add_argument("--output_all_variants", action="store_true")
@@ -186,8 +189,6 @@ def cmd_genotype(args) -> int:
     from graphtyper_tpu_torch.device import resolve_device
     from graphtyper_tpu_torch.pipeline.genotype import genotype_only_with_a_vcf, genotype_regions
 
-    if (args.num_hosts and args.num_hosts > 1) or args.coordinator or args.host_id is not None:
-        raise NotImplementedError("multi-host genotyping is not ported to the torch package yet")
     device = resolve_device(args.device)
     sams = _read_sams_arg(args)
     if not sams:
@@ -202,6 +203,33 @@ def cmd_genotype(args) -> int:
         avg_cov = _read_avg_cov(args.avg_cov_by_readlen, len(sams))
         if avg_cov is None:
             return 1
+    # multi-host region sharding (parallel/distributed.py): each host
+    # genotypes its deterministic share of the regions; the union of the
+    # hosts' region-structured outputs is the complete result
+    if args.num_hosts and args.num_hosts > 1:
+        from graphtyper_tpu_torch.parallel import distributed
+
+        if args.coordinator:
+            distributed.initialize(args.coordinator, args.num_hosts, args.host_id)
+        try:
+            outs = distributed.genotype_regions_distributed(
+                args.ref,
+                sams,
+                regions,
+                args.output,
+                device,
+                n_hosts=args.num_hosts,
+                host=args.host_id,
+                avg_cov_by_readlen=avg_cov,
+                prior_vcf=args.prior_vcf or None,
+                output_all_variants=args.output_all_variants,
+            )
+        finally:
+            distributed.shutdown()
+        for o in outs:
+            print(o)
+        return 0
+
     for region in regions:
         if args.vcf:
             print(genotype_only_with_a_vcf(args.ref, sams, args.vcf, region, args.output, device))

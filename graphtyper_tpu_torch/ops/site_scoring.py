@@ -3,10 +3,14 @@
 Port of graphtyper_tpu/ops/site_scoring.py: `apply_tier` is the torch form
 of the jitted `_apply_tier_impl` (:144) and returns the same flat vector in
 the same order (:221-234); `ObsBatcher` (:498) applies every tier on its
-device, whatever the row count (no host threshold, no telemetry file). The
-mesh-sharded apply is not ported here. The observation layout, the tier
-buffers, the >64-allele host update and the materialization into site
-state are the JAX module's, copied.
+device, whatever the row count (no host threshold, no telemetry file).
+Given a mesh (parallel/mesh.py) it applies each flush over the mesh (the
+form of :278 `_jitted_apply_tier_sharded`): the rows split into one
+contiguous shard a mesh entry, each entry applies its shard on its
+device, and the flat int64 vectors are summed on the first device and, where
+the mesh's host axis spans a process group, over the group. The
+observation layout, the tier buffers, the >64-allele host update and the
+materialization into site state are the JAX module's, copied.
 
 Every sum is an integer segment sum taken in int64 with `index_add_`, so
 the result is exact and independent of the order of the rows.
@@ -137,6 +141,22 @@ def apply_tier(obs_mat: torch.Tensor, A: int, n_sites: int, n_samples: int) -> t
         log_delta.reshape(-1), gt_cov.reshape(-1), amb, amb_alt, alt_pp,
         clip_reads, site_mapq_sq, *per_allele, pa_strand,
     ])
+
+
+def apply_tier_sharded(mesh, obs_mat: torch.Tensor, A: int, n_sites: int,
+                       n_samples: int) -> torch.Tensor:
+    """`apply_tier` over a parallel/mesh.py Mesh: the rows of the [14, N]
+    host matrix split into `mesh.size` contiguous shards, each shard this
+    process runs applied on its entry's device, the vectors summed on the
+    first of them and then over the host axis. Equal to the unsharded
+    vector bit for bit, since every entry is an integer sum."""
+    shards = torch.tensor_split(obs_mat, mesh.size, dim=1)
+    total = None
+    for i, dev in mesh.local_entries():
+        counters.COUNTS[f"scoring_rows_shard{i}"] += shards[i].shape[1]
+        vec = apply_tier(shards[i].to(dev), A, n_sites, n_samples)
+        total = vec if total is None else total.add_(vec.to(total.device))
+    return mesh.host_sum(total)
 
 
 def split_totals(vec: torch.Tensor, A: int, n_sites: int, n_samples: int) -> dict:
@@ -275,14 +295,16 @@ class _TierBuffer:
 
 class ObsBatcher:
     """Accumulates per-(read, site) observations and applies them to the
-    HaplotypeSite states in chunked passes per allele tier on `device`
-    (graphtyper_tpu/ops/site_scoring.py:498 without its mesh and host
-    paths)."""
+    HaplotypeSite states in chunked passes per allele tier on `device`, or
+    over the entries of `mesh`
+    (graphtyper_tpu/ops/site_scoring.py:498 without its host path)."""
 
-    def __init__(self, sites, n_samples: int, device: torch.device | str):
+    def __init__(self, sites, n_samples: int, device: torch.device | str,
+                 mesh=None):
         self.sites = sites
         self.n_samples = n_samples
         self.device = torch.device(device)
+        self.mesh = mesh  # set -> applied over its entries
         self.tiers: dict[int, _TierBuffer] = {}
         self._totals: dict = {}  # tier -> running flush totals (site-major)
         # exact saturation tracking (haplotype.cpp:528-533): max_log_score is
@@ -381,8 +403,9 @@ class ObsBatcher:
 
     def _flush_tier_launch(self, tier: int, buf: _TierBuffer):
         """Ship the tier's rows in one transfer and apply them in chunks of
-        `_chunk_rows(A)` rows (bounds the [N, T] Gram term); returns the
-        summed device vector, or None when the tier holds no rows."""
+        `_chunk_rows(A)` rows (bounds the [N, T] Gram term), each chunk over
+        the mesh when there is one; returns the summed device vector, or
+        None when the tier holds no rows."""
         cols_np, n = buf.materialize_cols()
         buf.blocks = []
         buf.cols = {k: [] for k in OBS_FIELDS}
@@ -391,11 +414,18 @@ class ObsBatcher:
         counters.COUNTS["scoring_rows"] += n
         A = buf.A
         n_sites = len(buf.site_ids)
-        mat = torch.from_numpy(obs_matrix(cols_np, n)).to(self.device)
+        mesh = self.mesh
+        mat = torch.from_numpy(obs_matrix(cols_np, n))
+        if mesh is None:
+            mat = mat.to(self.device)
         chunk = _chunk_rows(A)
         total = None
         for lo in range(0, n, chunk):
-            vec = apply_tier(mat[:, lo : lo + chunk], A, n_sites, self.n_samples)
+            part = mat[:, lo : lo + chunk]
+            if mesh is None:
+                vec = apply_tier(part, A, n_sites, self.n_samples)
+            else:
+                vec = apply_tier_sharded(mesh, part, A, n_sites, self.n_samples)
             total = vec if total is None else total.add_(vec)
         return total, n_sites
 

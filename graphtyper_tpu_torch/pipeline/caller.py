@@ -11,8 +11,8 @@ map derivation (:790-904, thresholds 0.22/0.78, support>=4 or >=28%).
 Port of graphtyper_tpu/pipeline/caller.py. Reading, pairing, the phasing
 map and the pool result are the JAX module's host code, copied. The forks
 of :216 `call_pool` and :629 `call_pools` construct the port's SiteScorer
-on the device they are given and call the port's native caller. The
-rep-sharded oracle and the mesh key are not ported yet.
+on the device they are given, with the scorer's mesh, and call the
+port's native caller, with the rep-sharded oracle (parallel/rep_shard.py).
 """
 
 from __future__ import annotations
@@ -359,10 +359,15 @@ def call_pool(
     force_align_both_orientations: bool = False,
     no_filter_on_coverage: bool = False,
     ref_path: str | None = None,
+    scorer_mesh=None,
     stream_spill: str | None = None,
+    rep_oracle=None,
 ) -> PoolResult:
     """parallel_reader_genotype_only for one pool of samples, scored on
-    `device` (fork of graphtyper_tpu/pipeline/caller.py:216).
+    `device`, or over the entries of `scorer_mesh` (a parallel/mesh.py
+    Mesh). `rep_oracle` imports the align
+    results other hosts computed (parallel/rep_shard.py) and keeps the pool
+    in memory. Fork of graphtyper_tpu/pipeline/caller.py:216.
 
     stream_spill: optional per-pool spill path for cross-iteration staged
     batch reuse in the streaming caller (native_caller.py
@@ -383,6 +388,10 @@ def call_pool(
         if nc.available():
             fast = None
             stream_mode = getattr(_copts(), "streaming_caller", "auto")
+            if rep_oracle is not None:
+                # rep-sharded mode imports external results through the prep's
+                # row numbering, which the streaming caller does not have
+                stream_mode = "off"
             use_stream = stream_mode == "on"
             if stream_mode == "auto" and all(p.endswith(".bam") for p in hts_paths):
                 # big pools stream (bounded RSS); small pools stay in-memory
@@ -410,6 +419,7 @@ def call_pool(
                     hq_reads=getattr(_copts(), "hq_reads", False),
                     avg_cov=sv_stream_cov,
                     stream_spill=stream_spill,
+                    mesh=scorer_mesh,
                 )
             if fast is None:
                 sv_avg_cov = None
@@ -430,6 +440,8 @@ def call_pool(
                     hq_reads=getattr(_copts(), "hq_reads", False),
                     avg_cov=sv_avg_cov,
                     ref_path=ref_path,
+                    mesh=scorer_mesh,
+                    rep_oracle=rep_oracle,
                 )
             if fast is not None:
                 sample_names, scorer, num_records, num_duplicated, fast_depth = fast
@@ -454,6 +466,7 @@ def call_pool(
         sample_names,
         device,
         hq_reads=getattr(_copts(), "hq_reads", False),
+        mesh=scorer_mesh,
     )
     is_sv = graph.is_sv_graph
     reference_depth = ReferenceDepth(graph, len(sample_names)) if is_sv else None

@@ -194,6 +194,7 @@ def genotype(
     is_extra_call_only_iteration: bool = False,
     output_all_variants: bool = False,
     keep_tmp: bool = False,
+    scorer_mesh=None,
 ) -> str:
     """The full discovery + iterative regenotyping pipeline
     (genotype.cpp:336-681):
@@ -204,7 +205,9 @@ def genotype(
     LAST: final call, merge, decompose, write the output VCF.
 
     Fork of graphtyper_tpu/pipeline/genotype.py:146: discovery and the call
-    iterations run on `device`; the mesh key is not ported yet.
+    iterations run on `device`; with `scorer_mesh`
+    (a parallel/mesh.py Mesh) every call iteration's scoring runs over
+    that mesh.
     """
     import shutil
     import tempfile
@@ -320,6 +323,7 @@ def genotype(
             is_writing_calls_vcf=is_last,
             is_writing_hap=not is_last,
             ref_path=ref_path,
+            scorer_mesh=scorer_mesh,
             # call iterations stream the identical record sequence: iteration
             # 2 can spill the staged batches and iteration 3 replay them,
             # skipping decompress+parse+extract. Opt-in (GT_STREAM_SPILL=1),

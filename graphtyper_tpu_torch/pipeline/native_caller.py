@@ -13,10 +13,12 @@ hooks of non-SV pools, on the same device: device seeding
 (ops/seed_probe.py) and device alignment (ops/device_align.py), in memory
 and, for alignment, in the streaming caller's stage/step pipeline. Unlike
 the JAX package's hooks they catch nothing: a kernel that fails to build
-or launch raises. Neither the rep-sharded oracle nor the mesh key is
-ported. Unlike the JAX package's prepared-pool cache, this one pins each
-entry while a pool uses it: pools that run at once never free each
-other's prepared reads."""
+or launch raises. Both entries take the scorer's mesh
+(parallel/mesh.py, ops/site_scoring.py), and the in-memory one the
+rep-sharded oracle (parallel/rep_shard.py), whose resolved rows go into
+the engine's external-result arrays. Unlike the JAX package's
+prepared-pool cache, this one pins each entry while a pool uses it: pools
+that run at once never free each other's prepared reads."""
 
 from __future__ import annotations
 
@@ -261,6 +263,7 @@ class _PrepEntry:
         self.sample_names = sample_names
         self.kmers_dev = None  # staged (hi, lo, valid) tensors
         self.tails_dev = None  # staged (tails, lens) tensors
+        self.row_seqs = None  # fetched (codes, lens)
         self.pins = 1  # the user that made it
         self.cached = False
 
@@ -293,6 +296,17 @@ class _PrepEntry:
         valid = np.zeros((self.n_rows, nk), dtype=np.uint8)
         lib.gt_prep_fetch_kmers(self.handle, _ptr(hi), _ptr(lo), _ptr(valid))
         return hi, lo, valid
+
+    def fetch_row_seqs(self, lib):
+        """Per-row oriented sequence codes [n_rows, row_len] (pad 15) and row
+        lengths: the deduplicated align work units, which the rep-sharded
+        exchange (parallel/rep_shard.py) keys by digest. Fetched once."""
+        if self.row_seqs is None:
+            codes = np.zeros((self.n_rows, self.row_len), dtype=np.uint8)
+            lens = np.zeros(self.n_rows, dtype=np.int32)
+            lib.gt_prep_fetch_seqs(self.handle, _ptr(codes), _ptr(lens))
+            self.row_seqs = (codes, lens)
+        return self.row_seqs
 
     def fetch_tails(self, lib):
         """(tails [n_rows, TAIL_PAD], lens [n_rows]): each row's bases after
@@ -889,6 +903,8 @@ def run_native_call_pool_bam(
     n_threads: int = 0,
     avg_cov: list | None = None,
     ref_path: str | None = None,
+    mesh=None,
+    rep_oracle=None,
 ):
     """Fork of graphtyper_tpu/pipeline/native_caller.py:443: BAM bytes
     straight into the C++ pooled loop, observation rows into the port's
@@ -896,9 +912,11 @@ def run_native_call_pool_bam(
     seeding runs on `device` (ops/seed_probe.py) and the host verifies the
     candidates; with device_align on or verify the verdict kernel
     (ops/device_align.py) decides which rows skip the host's seed, lattice
-    and walk. Returns (sample_names, scorer, num_records, num_duplicated,
-    reference_depth) or None when the pool needs the object path (non-BAM
-    input, multi-sample files, no region)."""
+    and walk. `mesh` (a parallel/mesh.py Mesh) shards the scorer's flushes;
+    `rep_oracle` (a rep_shard.RepOracle) hands the engine the rows other
+    hosts aligned. Returns (sample_names, scorer, num_records,
+    num_duplicated, reference_depth) or None when the pool needs the object
+    path (non-BAM input, multi-sample files, no region)."""
     if region is None or not all(p.endswith((".bam", ".cram")) for p in hts_paths):
         return None
     lib = get_lib()
@@ -921,7 +939,7 @@ def run_native_call_pool_bam(
         return None
     try:
         sample_names = entry.sample_names
-        scorer = SiteScorer(graph, sample_names, device, hq_reads=hq_reads)
+        scorer = SiteScorer(graph, sample_names, device, hq_reads=hq_reads, mesh=mesh)
 
         from graphtyper_tpu_torch.typer.native_align import NativeAligner, seed_filter_handle
 
@@ -980,17 +998,21 @@ def run_native_call_pool_bam(
                 *outs,
             )
         else:
+            # the oracle's 12 arrays (ExtView, native/gt_align.cpp), kept
+            # alive across the call
+            ext = None if rep_oracle is None else rep_oracle.resolve(*entry.fetch_row_seqs(lib))
             handle = lib.gt_call_finish(
                 entry.handle,
                 *graph_site_index_args,
                 None if cand_words is None else ptr(cand_words),
                 0 if cand_words is None else entry.nk_max,
                 None if verd_rows is None else ptr(verd_rows), 1 if dal_mode == "verify" else 0,
-                *([None] * 12),  # no rep-sharded results
+                *([None] * 12 if ext is None else [ptr(a) for a in ext]),
                 len(sample_names), 1 if hq_reads else 0, n_threads,
                 seed_filter_handle(index, lib, n_threads),
                 *outs,
             )
+            del ext
         stats = _consume_call_result(
             lib, handle, scorer, len(sample_names), n_obs, n_xvals, n_conn, n_counts, n_touched
         )
@@ -1014,15 +1036,17 @@ def run_native_call_pool_stream(
     batch_records: int = 1 << 18,
     avg_cov: list | None = None,
     stream_spill: str | None = None,
+    mesh=None,
 ):
     """Fork of graphtyper_tpu/pipeline/native_caller.py:981: the
     bounded-memory pooled call (BGZF stream + heap merge, fixed-size batches)
     with every batch's observation rows drained into the port's scorer on
     `device`. With device_align on or verify (non-SV), each batch's rows
     are staged one batch ahead and their verdicts computed on `device`
-    while the host aligns the batch before (JAX :1137-1251). Same
-    spill/replay protocol and return value as the JAX package's; None to
-    fall back to the in-memory path."""
+    while the host aligns the batch before (JAX :1137-1251). `mesh`
+    shards the scorer's flushes over its entries. Same spill/replay
+    protocol and return value as the JAX package's; None to fall back to
+    the in-memory path."""
     if region is None or not all(p.endswith(".bam") for p in hts_paths):
         return None
     lib = get_lib()
@@ -1051,7 +1075,7 @@ def run_native_call_pool_stream(
     from graphtyper_tpu_torch.typer.native_align import NativeAligner, seed_filter_handle
 
     device = torch.device(device)
-    scorer = SiteScorer(graph, sample_names, device, hq_reads=hq_reads)
+    scorer = SiteScorer(graph, sample_names, device, hq_reads=hq_reads, mesh=mesh)
     na = NativeAligner(graph, index)
     site_order, site_cnum, site_is_snp = _graph_site_arrays(graph, scorer)
     if n_threads <= 0:

@@ -13,8 +13,8 @@ structures and the read replay are the JAX module's host code, copied. Two
 functions that call the device layer are forks: `realign_to_indels` (:655)
 runs its SW batches through the port's `align_batch`, and
 `streamlined_discovery` (:788) runs the first-pass aggregation through the
-port's pileup and calls the forked realignment. The multi-host `dist`
-argument is not ported yet.
+port's pileup and calls the forked realignment; its multi-host `dist`
+argument takes the port's parallel/distributed.py DiscoveryDist.
 """
 
 from __future__ import annotations
@@ -797,14 +797,22 @@ def streamlined_discovery(
     region_str: str,
     sample_names_out: list[str] | None,
     device: torch.device | str,
+    dist=None,
 ) -> VcfOutput:
     """caller.cpp:2753-3095 — full discovery: first pass per sample, merge,
     realignment second pass, emit sites-only VCF with phasing INFO.
 
-    Fork of graphtyper_tpu/typer/discovery.py:788 without its `dist`
-    argument. The split first pass aggregates every file's rows in one call
-    on `device` (device_discovery "auto" and "on" alike; "off" keeps the
-    monolithic native pass), and realignment runs on `device`."""
+    `dist` (optional) distributes the per-file work across hosts
+    (parallel/distributed.DiscoveryDist): each host computes first-pass
+    partials only for the files it owns, partials allgather and merge in
+    global file order on every host, and the sequential realignment rounds
+    pass the shared event state between owners — so every host ends with a
+    state (and emitted VCF) byte-identical to the single-process run.
+
+    Fork of graphtyper_tpu/typer/discovery.py:788. The split first pass
+    aggregates every owned file's rows in one call on `device`
+    (device_discovery "auto" and "on" alike; "off" keeps the monolithic
+    native pass), and realignment runs on `device`."""
     from graphtyper_tpu_torch.io.fasta import FastaFile
 
     region = GenomicRegion.parse(region_str)
@@ -864,7 +872,11 @@ def streamlined_discovery(
         buckets, sample_haps = run_first_pass(reads, region_begin, reference, opts=opts_now)
         return buckets, sample_haps, name, reads
 
-    owned = list(enumerate(hts_paths))
+    owned = [
+        (file_i, path)
+        for file_i, path in enumerate(hts_paths)
+        if dist is None or dist.owns(file_i)
+    ]
     partials: dict[int, tuple] = {}
     threads = max(1, getattr(opts_now, "threads", 1))
 
@@ -944,6 +956,13 @@ def streamlined_discovery(
             per_file_reads[file_i] = reads
             partials[file_i] = (buckets, sample_haps, name)
 
+    if dist is not None:
+        # partials allgather: every host merges the full set in file order
+        merged_partials: dict[int, tuple] = {}
+        for d in dist.allgather(partials):
+            merged_partials.update(d)
+        partials = merged_partials
+
     for file_i in range(len(hts_paths)):
         buckets, sample_haps, name = partials[file_i]
         if sample_names_out is not None:
@@ -986,6 +1005,14 @@ def streamlined_discovery(
 
     for file_i, indels in indel_to_realign.items():
         if not indels:
+            continue
+        if dist is not None and not dist.owns(file_i):
+            # sequential state round: adopt the owner's post-realignment
+            # event state (the shared counters accumulate across files in
+            # file order — identical to the single-process walk)
+            new_state = dist.sync_state(file_i, None)
+            indel_events.clear()
+            indel_events.update(new_state)
             continue
         buckets2 = None
         max_read_size = 100
@@ -1030,6 +1057,8 @@ def streamlined_discovery(
         realign_to_indels(
             work, indel_events, buckets2, max_read_size, region_begin, reference, device
         )
+        if dist is not None:
+            dist.sync_state(file_i, indel_events)
 
     # emission (caller.cpp:2953-3090)
     vcf = VcfOutput()

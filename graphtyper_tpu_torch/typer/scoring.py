@@ -66,8 +66,8 @@ class SiteScorer:
     site, updated read-by-read.
 
     Observations are extracted per read on the host and buffered; `finalize()`
-    applies them in batched segment-sum passes on `device`
-    (ops/site_scoring.py). Sites with more than 64 alleles take the
+    applies them in batched segment-sum passes on `device`, or over the
+    entries of `mesh` (ops/site_scoring.py). Sites with more than 64 alleles take the
     reference-shaped per-read host update.
     """
 
@@ -77,6 +77,7 @@ class SiteScorer:
         sample_names: list[str],
         device: torch.device | str,
         hq_reads: bool = False,
+        mesh=None,
     ):
         from graphtyper_tpu_torch.config import current_options
 
@@ -95,7 +96,7 @@ class SiteScorer:
         self.connections: list[list[dict[int, dict[int, np.ndarray]]]] = [
             [dict() for _ in sample_names] for _ in self.sites
         ]
-        self.batcher = ObsBatcher(self.sites, len(sample_names), device)
+        self.batcher = ObsBatcher(self.sites, len(sample_names), device, mesh=mesh)
         self._tier_for = tier_for
 
     def finalize(self) -> None:

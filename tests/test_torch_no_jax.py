@@ -328,14 +328,14 @@ DEVICE_SEAMS = {
 }
 
 
-def test_subcommand_modules_hide_no_device_failure():
-    """No try/except in these modules has a device seam, or a name imported
-    from the port's ops/, called in its body."""
+def _hidden_seams(modules, device_seams):
+    """Calls of a device seam, or of a name imported from the port's ops/,
+    inside the body of a try/except of these modules."""
     offenders = []
-    for rel in SUBCOMMAND_MODULES:
+    for rel in modules:
         path = PKG / rel
         tree = ast.parse(path.read_text())
-        seams = set(DEVICE_SEAMS)
+        seams = set(device_seams)
         for node in ast.walk(tree):
             if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(f"{PKG.name}.ops"):
                 seams.update(a.asname or a.name for a in node.names)
@@ -348,4 +348,61 @@ def test_subcommand_modules_hide_no_device_failure():
                     name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
                     if name in seams:
                         offenders.append(f"{rel}:{inner.lineno}: {name}")
+    return offenders
+
+
+def test_subcommand_modules_hide_no_device_failure():
+    """No try/except in these modules has a device seam, or a name imported
+    from the port's ops/, called in its body."""
+    offenders = _hidden_seams(SUBCOMMAND_MODULES, DEVICE_SEAMS)
     assert not offenders, offenders
+
+
+# the parallel layer and the fused step, and the calls in them that reach a
+# device or a peer process
+PARALLEL_MODULES = (
+    "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py", "parallel/prefetch.py",
+    "parallel/rep_shard.py", "ops/hamming.py", "ops/likelihood.py", "ops/genotype_step.py", "entry.py",
+)
+PARALLEL_SEAMS = DEVICE_SEAMS | {
+    "genotype_forward", "mismatch_matrix", "_int_mm", "apply_tier", "apply_tier_sharded",
+    "genotype_distributed", "genotype_regions_distributed", "init_process_group", "all_gather",
+    "all_reduce", "host_sum", "local_row_seqs", "build_oracle", "align_rows_raw", "dryrun_multichip",
+}
+
+
+def test_parallel_modules_hide_no_device_failure():
+    """No try/except of the parallel layer or the fused step wraps a device
+    seam or a collective: a failed card, kernel or peer raises."""
+    assert all((PKG / rel).is_file() for rel in PARALLEL_MODULES)
+    offenders = _hidden_seams(PARALLEL_MODULES, PARALLEL_SEAMS)
+    assert not offenders, offenders
+
+
+def test_parallel_layer_runs_without_jax():
+    """The fused step, a sharded step over a mesh of the CPU taken twice,
+    the prefetch and the rep-shard helpers run in a fresh process that never
+    loads jax or the JAX package."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.path.insert(0, {str(REPO)!r})
+        import numpy as np, torch
+        from graphtyper_tpu_torch import entry
+        from graphtyper_tpu_torch.parallel import distributed, mesh, prefetch, rep_shard
+        fn, args = entry.entry("cpu")
+        delta, B = fn(*args)
+        m = mesh.make_mesh(devices=["cpu"] * 2)
+        reads, haps, hap_allele, eps = (a.numpy() for a in args)
+        reads_d, eps_d = mesh.shard_reads(m, reads, eps)
+        d2, depth = mesh.sharded_genotype_step(m)(reads_d, haps, hap_allele, eps_d)
+        assert torch.equal(d2, delta) and torch.equal(depth, B.sum(0))
+        assert [int(t) for t in prefetch.prefetch_to_device(iter([np.int64(1), np.int64(2)]), device="cpu")] == [1, 2]
+        assert distributed.num_hosts() == 1 and rep_shard._digest_rows([b"ACGT"]).shape == (1, 16)
+        print("LOADED", sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "graphtyper_tpu")))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
