@@ -96,6 +96,27 @@ Phases, one line each, none of them caught:
               on a side stream, and pipelined_map decodes six more on
               threads; each batch on cuda, in order, and genotype_forward
               on it at once equal to the CPU's on the same arrays
+ 10. indep    (after dist) CRAM input: two cohorts of utils/simulate_indep.py,
+              bench.py's independent workload (120 kb, 30x, seed 9) and
+              tests/pipeline/test_indep_workload.py's (40 kb, 28x, seed 11),
+              each through the port's CLI on cuda in process and on
+              --device cpu in a subprocess: one md5, no plain version on
+              the card, sw_rot launched on the second (the first realigns
+              nothing); write_crai on the first CRAM, read_crai, and
+              crai_query over 40-80 kb returning every container with a
+              record there
+     fuzz     graphtyper_tpu_torch/tools/fuzz_diff.py's seed 1 on cuda: every
+              leg (the Python caller and aligner, streaming, threads 1 and
+              4, the host SW, BAI, CRAM, Python rANS, SAM, pooled regions,
+              --vcf mode, popVCF, the SV axis, --device cpu,
+              GT_DEVICE_ALIGN=on, device_seed on) equal to the seed's cuda
+              run; each leg's wall
+     soak     graphtyper_tpu_torch/tools/soak_population.py at 16 samples x
+              120 kb x 10x with 4 region workers, in a subprocess on cuda
+              with GT_SCORING_STATS set and on --device cpu: one md5, the
+              peak tree RSS (this process's and the workers' apart),
+              reads/s, and the telemetry's device_rows, device_wall_s and
+              h2d_bytes
 The SW batches come from tests/test_torch_sw_batches.py, the verdict and
 seed batches from tests/test_torch_device_align_batches.py, the HLA panel
 from tests/test_torch_subcommand_data.py. VCF md5s are taken with the
@@ -219,6 +240,20 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 DIST_E2E = dict(region_length=50_000, coverage=14.0, n_samples=4, seed=31, out_format="bam")
 DIST_CLI = dict(region_length=100_000, coverage=8.0, n_samples=2, seed=33, error_rate=0.01, out_format="bam")
 DIST_TIMEOUT_S = 300
+# CRAM cohorts of utils/simulate_indep.py (a Markov reference with
+# indel-rich clustered sites, adapter soft clips and ramped quals, one
+# sample): bench.py's independent workload (bench.py:181-191), 120 kb at 30x,
+# seed 9, where every indel has the read support that spares it
+# realignment, so discovery launches no SW; and the recipe of
+# tests/pipeline/test_indep_workload.py, 40 kb at 28x, seed 11, whose
+# discovery realigns
+INDEP = (("bench", dict(region_length=120_000, coverage=30.0, seed=9)),
+         ("recall", dict(region_length=40_000, coverage=28.0, seed=11)))
+INDEP_CRAI_WINDOW = (40_000, 80_000)  # 0-based half-open window of the crai query
+FUZZ_SEED = 1  # a 2-sample BAM cohort: the BAI, CRAM, Python-rANS and SAM legs run
+# tests/pipeline/test_population_soak.py:19-20's small recipe
+SOAK = ["--samples", "16", "--kb", "120", "--coverage", "10", "--processes", "4"]
+SOAK_TIMEOUT_S = 600
 
 
 def _md5(paths):
@@ -1324,6 +1359,164 @@ def dist_phase(work, dev):
     return dict(wall=wall, launches=launches, children=children)
 
 
+def _cram_containers(path):
+    """(file offset, records) of each data container of a CRAM, read from
+    the container headers, in file order."""
+    from graphtyper_tpu_torch.io.cram import ByteReader, read_container_header
+
+    with open(path, "rb") as f:
+        data = f.read()
+    major = data[4]
+    br = ByteReader(data, 26)
+    hdr = read_container_header(br, major)  # the SAM header's container
+    br.pos += hdr.length
+    out = []
+    while not br.eof():
+        off = br.pos
+        hdr = read_container_header(br, major)
+        br.pos += hdr.length
+        if hdr.n_records:
+            out.append((off, hdr.n_records))
+    return out
+
+
+def indep_phase(work):
+    """The INDEP CRAM cohorts, built by the port's utils/simulate_indep.py:
+    each through the port's CLI on cuda in process, then on --device cpu in
+    a subprocess (one md5, no plain version on the card; sw_rot launched on
+    the recall cohort). Then write_crai on the bench cohort's CRAM, read_crai
+    back, and crai_query over INDEP_CRAI_WINDOW, which must return every
+    container that holds a record overlapping the window (the containers'
+    records counted from their headers, the records decoded in file order).
+    Returns {cohort: (counters, wall s)}."""
+    from graphtyper_tpu_torch.simulate import IndepConfig, simulate_indep
+
+    out = {}
+    for name, kw in INDEP:
+        cfg = IndepConfig(**kw)
+        t0 = time.perf_counter()
+        sim = simulate_indep(os.path.join(work, "indep", name, "sim"), cfg)
+        built = time.perf_counter() - t0
+
+        def argv(out_dir, device):
+            return ["genotype", sim.fasta, "--region", f"{cfg.chrom}:1-{cfg.region_length}", "-O", out_dir,
+                    "--threads", str(THREADS), "--device", device, *_sam_flags(sim.sams)]
+
+        runs, md5, files = card_and_cpu(os.path.join(work, "indep"), name, argv, [("cuda", "", {})])
+        out[name] = runs["cuda"]
+        what = (f"{name}: genotype {cfg.chrom}:1-{cfg.region_length}, {cfg.coverage:g}x, seed {cfg.seed}, "
+                f"{sim.n_reads} reads of 1 sample as CRAM (built in {built:.3f} s)")
+        if name == "recall" and runs["cuda"][0].get("sw_rot", 0) <= 0:
+            raise AssertionError(f"indep {what}: discovery did not launch sw_rot: {runs['cuda'][0]}")
+        if name == "bench":
+            what += "; crai: " + _crai_check(sim.sams[0], os.path.join(work, "indep", "bench.cram.crai"))
+        _phase_line("indep", what, runs, sim.n_reads, md5, files)
+    return out
+
+
+def _crai_check(cram, crai_path):
+    """write_crai, read_crai and crai_query over INDEP_CRAI_WINDOW against
+    the containers that hold records there; returns the phase line's text."""
+    from graphtyper_tpu_torch.io.crai import crai_query, read_crai, write_crai
+    from graphtyper_tpu_torch.io.cram import read_cram
+
+    entries = read_crai(write_crai(cram, crai_path))
+    beg, end = INDEP_CRAI_WINDOW
+    got = {e.container_offset for e in crai_query(entries, 0, beg, end)}
+    _, reads = read_cram(cram)
+    containers = _cram_containers(cram)
+    if sum(n for _, n in containers) != len(reads):
+        raise AssertionError(f"indep: the container headers count {sum(n for _, n in containers)} records, "
+                             f"the decode {len(reads)}")
+    want, i = set(), 0
+    for off, n in containers:
+        if any(r.ref_id == 0 and r.pos < end and r.pos + max(1, r.reference_length()) > beg
+               for r in reads[i : i + n]):
+            want.add(off)
+        i += n
+    if not want or not want <= got:
+        raise AssertionError(f"indep: crai_query over [{beg}, {end}) gave containers {sorted(got)}, "
+                             f"the records need {sorted(want)}")
+    return (f"{len(entries)} slices in {len(containers)} containers; the query over [{beg}, {end}) gives "
+            f"{len(got)}, every one of the {len(want)} with records there among them")
+
+
+def fuzz_phase(work):
+    """tools/fuzz_diff.py's legs for FUZZ_SEED on cuda, against the port's
+    own cuda run of the seed: 0 failures, each leg's wall."""
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.tools.fuzz_diff import fuzz_seed
+
+    counters.reset()
+    t0 = time.perf_counter()
+    res = fuzz_seed(FUZZ_SEED, os.path.join(work, "fuzz"), "cuda")
+    wall = time.perf_counter() - t0
+    seen = counters.totals()
+    if res.fails:
+        raise AssertionError(f"fuzz seed {FUZZ_SEED}: {len(res.fails)} failures: {res.fails}")
+    for leg in ("bai", "cram", "cram_pyrans", "sam", "cpu", "device_align", "device_seed"):
+        if leg not in res.walls:
+            raise AssertionError(f"fuzz seed {FUZZ_SEED}: the {leg} leg did not run")
+    print(f"fuzz: tools/fuzz_diff seed {FUZZ_SEED} on cuda ({len(res.sim.sams)} samples, {res.region}, "
+          f"{res.sim.n_reads} reads), {len(res.walls) - 1} legs against the reference run, 0 failures, in "
+          f"{wall:.3f} s; leg walls (s) {json.dumps({k: round(v, 3) for k, v in res.walls.items()})}; "
+          f"counters {json.dumps(seen, sort_keys=True)}", flush=True)
+    return dict(wall=wall, counters=seen)
+
+
+def soak_phase(work):
+    """tools/soak_population.py at tests/pipeline/test_population_soak.py's
+    small recipe with 4 region workers, on cuda (GT_SCORING_STATS set) and
+    on --device cpu, each in a subprocess on one cached cohort: one md5,
+    the peak tree RSS (and the orchestrator's and the workers' apart),
+    reads/s, and the summed device_rows, device_wall_s and h2d_bytes of the
+    card run's telemetry lines."""
+    cache = os.path.join(work, "soak")
+    stats = os.path.join(work, "soak_stats.jsonl")
+    out = {}
+    for device in ("cuda", "cpu"):
+        env = dict(os.environ)
+        if device == "cuda":
+            env["GT_SCORING_STATS"] = stats
+        else:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        proc = subprocess.run([sys.executable, "-m", "graphtyper_tpu_torch.tools.soak_population", *SOAK,
+                               "--device", device, "--cache", cache], cwd=HERE, capture_output=True, text=True,
+                              env=env, timeout=SOAK_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"soak on {device} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        if not lines[-2].startswith("rss: ") or not lines[-3].startswith("counters: "):
+            raise AssertionError(f"soak on {device}: unexpected output {lines[-3:]}")
+        out[device] = dict(result=json.loads(lines[-1]), rss=lines[-2],
+                           counters=json.loads(lines[-3][len("counters: "):]))
+    card, host = out["cuda"]["result"], out["cpu"]["result"]
+    if card["md5"] != host["md5"] or card["n_records"] != host["n_records"] or card["n_records"] <= 0:
+        raise AssertionError(f"soak: the card's records differ from the CPU device's: {card} vs {host}")
+    seen = out["cuda"]["counters"]
+    _no_plain(seen, "soak")
+    if seen.get("scoring_rows", 0) <= 0:
+        raise AssertionError(f"soak: no scoring rows on the card: {seen}")
+    tel = {"device_rows": 0, "device_wall_s": 0.0, "h2d_bytes": 0, "host_rows": 0}
+    with open(stats) as f:
+        n_lines = 0
+        for line in f:
+            d = json.loads(line)
+            n_lines += 1
+            for k in tel:
+                tel[k] += d[k]
+    if tel["device_rows"] != seen["scoring_rows"] or tel["host_rows"] or tel["h2d_bytes"] <= 0:
+        raise AssertionError(f"soak: GT_SCORING_STATS {tel} against the counters {seen}")
+    print(f"soak: tools/soak_population {' '.join(SOAK)}: {card['n_reads']} reads; cuda {card['wall_s']:.3f} s ="
+          f" {card['reads_per_sec']:.1f} reads/s, peak tree RSS {card['peak_tree_rss_mb']:.1f} MB"
+          f" ({out['cuda']['rss']}); cpu {host['wall_s']:.3f} s = {host['reads_per_sec']:.1f} reads/s, peak"
+          f" tree RSS {host['peak_tree_rss_mb']:.1f} MB; GT_SCORING_STATS of the card run: {n_lines} lines,"
+          f" device_rows {tel['device_rows']}, device_wall_s {tel['device_wall_s']:.4f}, h2d_bytes"
+          f" {tel['h2d_bytes']}; counters {json.dumps(seen, sort_keys=True)}; {card['n_records']} records,"
+          f" md5 {card['md5']} == --device cpu", flush=True)
+    return dict(counters=seen, **out)
+
+
 def main() -> int:
     import torch
 
@@ -1411,8 +1604,18 @@ def main() -> int:
         lap("mesh")
         dist = dist_phase(work, dev)
         lap("dist")
-    for runs in (pools, camou, discover):
+        indep = indep_phase(work)
+        lap("indep")
+        fuzz = fuzz_phase(work)
+        lap("fuzz")
+        soak = soak_phase(work)
+        lap("soak")
+    for runs in (pools, camou, discover, indep):
         rot_launches += sum(seen.get("sw_rot", 0) for seen, _ in runs.values())
+    for seen in (fuzz["counters"], soak["counters"]):
+        rot_launches += seen.get("sw_rot", 0)
+        for k in ("device_align", "seed_probe"):
+            align["launches"][k] += seen.get(k, 0)
     for runs in (pools, camou):
         align["launches"]["device_align"] += sum(seen.get("device_align", 0) for seen, _ in runs.values())
     rot_launches += mesh["counters"].get("sw_rot", 0)

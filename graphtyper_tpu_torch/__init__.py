@@ -14,15 +14,22 @@ Entry points:
         discover and call run on --device, cuda by default)
     python -m graphtyper_tpu_torch.tools.bench_sw [--row|--rot]
     python -m graphtyper_tpu_torch.tools.bench_sv [--device cpu]
+    python -m graphtyper_tpu_torch.tools.fuzz_diff [--device cuda|cpu] [n_seeds] [base]
+        (every implementation path of the pipeline against the port's own run)
+    python -m graphtyper_tpu_torch.tools.soak_population [--device cuda|cpu] ...
+        (a simulated population cohort: wall, tree RSS, md5 of the records)
+    python -m graphtyper_tpu_torch.tools.stage_ledger [--device cuda|cpu] ...
+        (per-stage host walls and the device-eligible share)
     graphtyper_tpu_torch.entry.entry() / dryrun_multichip(n)   (the fused
         genotype_forward step, and the pipeline with mesh-sharded scoring)
 
 parallel/ runs the port across processes (torch.distributed, gloo:
 region sharding, the sample-sharded genotype_distributed, the rep-sharded
 align exchange) and across the devices of a mesh (the sharded scoring
-apply and genotyping step). Not ported yet: the library-only modules
-typer/haplotype_extractor, typer/variant_map, io/crai, io/cram_writer and
-utils/simulate_indep, which no subcommand reaches (ROADMAP.md).
+apply and genotyping step). The library modules that no subcommand
+reaches are copies too: typer/haplotype_extractor, typer/variant_map,
+io/crai, io/cram_writer and utils/simulate_indep (the CRAM cohorts of
+simulate.py).
 
 Device options of `graphtyper_tpu_torch.config.Options`, as the port reads
 them: `device_sw` and `device_discovery` take "auto" and "on" as one value,

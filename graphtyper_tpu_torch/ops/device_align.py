@@ -27,6 +27,7 @@ thread per row) on the same tables packed into 16-byte records
 from __future__ import annotations
 
 import functools
+import threading
 import time
 
 import numpy as np
@@ -181,6 +182,13 @@ def verdicts_plain(hi, lo, valid, tails, lens, keys_hi, keys_lo, offsets, lab_st
     return out.to(torch.int32)
 
 
+#: this process's running verdict telemetry, the align_rows and
+#: align_wall_s of ops/site_scoring.py's GT_SCORING_STATS lines: the rows
+#: collected and the host wall of their launches and waits
+ALIGN_STATS = {"align_rows": 0, "align_wall_s": 0.0}
+_ALIGN_LOCK = threading.Lock()
+
+
 class PendingVerdicts:
     """Verdicts of one launch, on their way to the host. On the card the
     rows are copied into pinned memory behind the kernel and `wait` blocks
@@ -200,8 +208,12 @@ class PendingVerdicts:
             self._event.synchronize()
         # a batch without rows still hands the engine a non-null pointer
         out = self._host[: self.n_rows].numpy() if self.n_rows else np.zeros((0, OUT_COLS), np.int32)
-        counters.COUNTS["device_align_wall_s"] += self._launch_s + time.perf_counter() - t0
+        wall = self._launch_s + time.perf_counter() - t0
+        counters.COUNTS["device_align_wall_s"] += wall
         counters.COUNTS["device_align_rows"] += self.n_rows
+        with _ALIGN_LOCK:
+            ALIGN_STATS["align_rows"] += self.n_rows
+            ALIGN_STATS["align_wall_s"] += wall
         return out
 
 

@@ -3,7 +3,7 @@
 Port of graphtyper_tpu/ops/site_scoring.py: `apply_tier` is the torch form
 of the jitted `_apply_tier_impl` (:144) and returns the same flat vector in
 the same order (:221-234); `ObsBatcher` (:498) applies every tier on its
-device, whatever the row count (no host threshold, no telemetry file).
+device, whatever the row count (no host threshold).
 Given a mesh (parallel/mesh.py) it applies each flush over the mesh (the
 form of :278 `_jitted_apply_tier_sharded`): the rows split into one
 contiguous shard a mesh entry, each entry applies its shard on its
@@ -14,10 +14,28 @@ materialization into site state are the JAX module's, copied.
 
 Every sum is an integer segment sum taken in int64 with `index_add_`, so
 the result is exact and independent of the order of the rows.
+
+With GT_SCORING_STATS set to a path, every `finalize()` appends one JSON
+line of telemetry to it (O_APPEND, so region workers can share the file):
+the JAX line's eight keys and `pid`, each the change since this process's
+last line, so lines from several processes sum without double counting.
+`device_rows` and `device_wall_s` are the rows applied on the scorer's
+device (or mesh) and the host wall spent staging, launching and
+collecting them; the wall is what the host already waits, no
+synchronization is added for it. `host_rows` and `host_apply_wall_s` are
+always 0: no row-count threshold sends rows to the host in the port.
+`h2d_bytes` counts the bytes of observation matrices copied to a CUDA
+device (0 on the CPU), `materialize_wall_s` the host's fold into site
+state, and `align_rows`/`align_wall_s` the verdict launches of
+ops/device_align.py, in memory and in the streaming caller.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import threading
+import time
 from dataclasses import dataclass, field
 from functools import lru_cache
 
@@ -39,6 +57,41 @@ COV_MULTI_REF = -2
 COV_PAD = -3
 
 ALLELE_TIERS = (2, 4, 8, 16, 32, 64)
+
+#: this process's running scoring telemetry (see the module docstring);
+#: the scorer's pool threads add to it under _STATS_LOCK
+SCORING_STATS = {"host_rows": 0, "device_rows": 0, "device_wall_s": 0.0,
+                 "host_apply_wall_s": 0.0, "materialize_wall_s": 0.0, "h2d_bytes": 0}
+_STATS_LOCK = threading.Lock()
+_STATS_SNAPSHOT = {**SCORING_STATS, "align_rows": 0, "align_wall_s": 0.0}
+
+
+def add_stats(**deltas) -> None:
+    """Add to this process's SCORING_STATS."""
+    with _STATS_LOCK:
+        for k, v in deltas.items():
+            SCORING_STATS[k] += v
+
+
+def _write_scoring_stats() -> None:
+    """Append the change since the last write to $GT_SCORING_STATS, one
+    line per finalize (graphtyper_tpu/ops/site_scoring.py:62)."""
+    path = os.environ.get("GT_SCORING_STATS")
+    if not path:
+        return
+    from graphtyper_tpu_torch.ops.device_align import ALIGN_STATS
+
+    with _STATS_LOCK:
+        now = {**SCORING_STATS, **ALIGN_STATS.copy()}
+        delta = {k: now[k] - _STATS_SNAPSHOT[k] for k in now}
+        _STATS_SNAPSHOT.update(now)
+    delta = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in delta.items()}
+    delta["pid"] = os.getpid()
+    fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+    try:
+        os.write(fd, (json.dumps(delta) + "\n").encode())
+    finally:
+        os.close(fd)
 
 #: columns of one observation row, in buffer order
 OBS_FIELDS = (
@@ -154,6 +207,8 @@ def apply_tier_sharded(mesh, obs_mat: torch.Tensor, A: int, n_sites: int,
     total = None
     for i, dev in mesh.local_entries():
         counters.COUNTS[f"scoring_rows_shard{i}"] += shards[i].shape[1]
+        if dev.type == "cuda":
+            add_stats(h2d_bytes=shards[i].numel() * shards[i].element_size())
         vec = apply_tier(shards[i].to(dev), A, n_sites, n_samples)
         total = vec if total is None else total.add_(vec.to(total.device))
     return mesh.host_sum(total)
@@ -381,7 +436,10 @@ class ObsBatcher:
             self._flush_tier_collect(tier, launched)
             totals = self._totals.pop(tier, None)
             if totals is not None:
+                t0 = time.perf_counter()
                 self._materialize(buf, totals, buf.A)
+                add_stats(materialize_wall_s=time.perf_counter() - t0)
+        _write_scoring_stats()
 
     def _accumulate(self, tier: int, out: dict) -> None:
         """Add one flush's outputs into the running totals, growing the
@@ -412,11 +470,14 @@ class ObsBatcher:
         if n == 0:
             return None
         counters.COUNTS["scoring_rows"] += n
+        t0 = time.perf_counter()
         A = buf.A
         n_sites = len(buf.site_ids)
         mesh = self.mesh
         mat = torch.from_numpy(obs_matrix(cols_np, n))
         if mesh is None:
+            if self.device.type == "cuda":
+                add_stats(h2d_bytes=mat.numel() * mat.element_size())
             mat = mat.to(self.device)
         chunk = _chunk_rows(A)
         total = None
@@ -427,6 +488,7 @@ class ObsBatcher:
             else:
                 vec = apply_tier_sharded(mesh, part, A, n_sites, self.n_samples)
             total = vec if total is None else total.add_(vec)
+        add_stats(device_rows=n, device_wall_s=time.perf_counter() - t0)
         return total, n_sites
 
     def _flush_tier_collect(self, tier: int, launched) -> None:
@@ -434,9 +496,11 @@ class ObsBatcher:
         running totals that `finalize` materializes."""
         if launched is None:
             return
+        t0 = time.perf_counter()
         vec, n_sites = launched
         A = self.tiers[tier].A
         self._accumulate(tier, totals_to_numpy(split_totals(vec, A, n_sites, self.n_samples)))
+        add_stats(device_wall_s=time.perf_counter() - t0)
 
     def _materialize(self, buf: _TierBuffer, out: dict, A: int) -> None:
         P = self.n_samples
