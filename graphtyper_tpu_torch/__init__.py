@@ -20,6 +20,10 @@ Entry points:
         (a simulated population cohort: wall, tree RSS, md5 of the records)
     python -m graphtyper_tpu_torch.tools.stage_ledger [--device cuda|cpu] ...
         (per-stage host walls and the device-eligible share)
+    python -m graphtyper_tpu_torch.tools.bench [--device cuda|cpu] ...
+        (the headline bench: reads/s on the 200 kb cohort and its other legs)
+    python -m graphtyper_tpu_torch.tools.bench_flush, bench_ab, bench_configs,
+        bench_lr, bench_distributed   (the JAX package's other measurement tools)
     graphtyper_tpu_torch.entry.entry() / dryrun_multichip(n)   (the fused
         genotype_forward step, and the pipeline with mesh-sharded scoring)
 

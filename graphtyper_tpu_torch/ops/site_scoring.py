@@ -214,6 +214,29 @@ def apply_tier_sharded(mesh, obs_mat: torch.Tensor, A: int, n_sites: int,
     return mesh.host_sum(total)
 
 
+def flush_rows(mat: torch.Tensor, A: int, n_sites: int, n_samples: int, device: torch.device,
+               mesh=None) -> torch.Tensor:
+    """One scoring flush of a tier's [14, N] row matrix: the rows to
+    `device` in one copy (a mesh ships its own shards), then `apply_tier`
+    over chunks of `_chunk_rows(A)` rows (bounds the [N, T] Gram term),
+    each chunk over the mesh when there is one; returns the summed state
+    vector, on `device`."""
+    if mesh is None:
+        if mat.device.type == "cpu" and device.type == "cuda":
+            add_stats(h2d_bytes=mat.numel() * mat.element_size())
+        mat = mat.to(device)
+    chunk = _chunk_rows(A)
+    total = None
+    for lo in range(0, mat.shape[1], chunk):
+        part = mat[:, lo : lo + chunk]
+        if mesh is None:
+            vec = apply_tier(part, A, n_sites, n_samples)
+        else:
+            vec = apply_tier_sharded(mesh, part, A, n_sites, n_samples)
+        total = vec if total is None else total.add_(vec)
+    return total
+
+
 def split_totals(vec: torch.Tensor, A: int, n_sites: int, n_samples: int) -> dict:
     """The flat vector split into the named totals of the JAX package's
     `_split_out_vec` (:237-257), as views on the vector's device."""
@@ -471,23 +494,9 @@ class ObsBatcher:
             return None
         counters.COUNTS["scoring_rows"] += n
         t0 = time.perf_counter()
-        A = buf.A
         n_sites = len(buf.site_ids)
-        mesh = self.mesh
         mat = torch.from_numpy(obs_matrix(cols_np, n))
-        if mesh is None:
-            if self.device.type == "cuda":
-                add_stats(h2d_bytes=mat.numel() * mat.element_size())
-            mat = mat.to(self.device)
-        chunk = _chunk_rows(A)
-        total = None
-        for lo in range(0, n, chunk):
-            part = mat[:, lo : lo + chunk]
-            if mesh is None:
-                vec = apply_tier(part, A, n_sites, self.n_samples)
-            else:
-                vec = apply_tier_sharded(mesh, part, A, n_sites, self.n_samples)
-            total = vec if total is None else total.add_(vec)
+        total = flush_rows(mat, buf.A, n_sites, self.n_samples, self.device, self.mesh)
         add_stats(device_rows=n, device_wall_s=time.perf_counter() - t0)
         return total, n_sites
 

@@ -33,8 +33,6 @@ reads_per_sec, peak_tree_rss_mb, n_records, md5.
 from __future__ import annotations
 
 import argparse
-import gzip
-import hashlib
 import json
 import os
 import shutil
@@ -42,6 +40,8 @@ import sys
 import tempfile
 import threading
 import time
+
+from graphtyper_tpu_torch.tools.common import records_md5
 
 
 def _sim_one(args) -> tuple[str, int]:
@@ -176,19 +176,6 @@ class TreeRssMonitor:
     def __exit__(self, *a):
         self._stop.set()
         self._t.join(timeout=3)
-
-
-def records_md5(paths) -> tuple[str, int]:
-    """md5 of the record lines of the VCFs (headers dropped) and their count."""
-    h = hashlib.md5()
-    n_records = 0
-    for p in sorted(paths):
-        with gzip.open(p, "rt") as f:
-            for line in f:
-                if not line.startswith("#"):
-                    h.update(line.encode())
-                    n_records += 1
-    return h.hexdigest(), n_records
 
 
 def main(argv: list[str] | None = None) -> int:
