@@ -73,6 +73,17 @@ Phases, one line each, none of them caught:
               table the size of the seed bitset and of the packed verdict
               tables: the measured gather ceiling, and each kernel's loads
               over it
+     scoring  csrc/site_scoring.cu (apply_tier) against apply_tier_plain and
+     pileup   csrc/discovery_pileup.cu (segment_counters) against
+              segment_counters_plain on the card, exactly, on the
+              adversarial rows of tests/test_torch_scoring_batches.py at
+              every allele tier, at tools/bench_flush's four flush shapes
+              (65,536 to 4,194,304 rows) at A 2 and A 64, and at three
+              pileup shapes; CUDA-event ms of kernel, plain version and the
+              flush matrix's copy from pageable and from pinned memory, and
+              the byte bound. The main paths' launches of both kernels (the
+              slices, pools, align, the subcommands, mesh, dist, indep, fuzz
+              and soak) must be above 0, with no plain version on the card
   8. mesh     graphtyper_tpu_torch.entry.dryrun_multichip(4): the whole
               genotype pipeline on an 8-sample 50 kb cohort with every call
               iteration's scoring over a 2 x 2 mesh of the card taken four
@@ -84,8 +95,10 @@ Phases, one line each, none of them caught:
               with GT_REP_SHARD=1, host 0's VCF md5 equal to this process's
               single-process run; then the CLI's genotype --num_hosts 2
               --host_id 0|1 --coordinator on two 50 kb regions, the union of
-              outputs equal to the single-process CLI; each child's sw_rot
-              and device_align launches above 0
+              outputs equal to the single-process CLI; each child's sw_rot,
+              device_align, apply_tier and segment_counters launches above
+              0, and each run's sw_rot launches beside the run's work (its
+              sample shard, or its region)
   9. forward  genotype_forward (ops/genotype_step.py) on the card against the
               same function on the CPU, exactly, at entry()'s 256 x 160 x 64
               x 8 and bench.py's 8192 x 160 x 512 x 16; CUDA-event ms a
@@ -142,7 +155,9 @@ subcommands' included, error, times,
 bound; for sw_rot also its times and bounds per shape, the empty launch,
 the align_batch times and the R = 5 / R = 8 times; for device_align and
 seed_probe the times at 2^19 rows and per input, the measured gather
-ceiling and the time it gives the kernel's loads), and the last line
+ceiling and the time it gives the kernel's loads; for apply_tier and
+segment_counters the times at their largest shape and per shape), and the
+last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a GPU, and outside a checkout of the repository.
 """
@@ -250,6 +265,12 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 DIST_E2E = dict(region_length=50_000, coverage=14.0, n_samples=4, seed=31, out_format="bam")
 DIST_CLI = dict(region_length=100_000, coverage=8.0, n_samples=2, seed=33, error_rate=0.01, out_format="bam")
 DIST_TIMEOUT_S = 300
+SCORING_ROWS = (65_536, 262_144, 1_048_576, 4_194_304)  # tools/bench_flush's four flush shapes
+SCORING_TIERS = ((2, 512), (64, 64))  # (A, sites) at 50 samples: bench_flush's tier, and A = 64
+SCORING_SAMPLES = 50
+# (rows, events) of the pileup: a 200 kb region's first pass (7,530-19,188
+# rows in the dist phase's runs), then cohort sizes
+PILEUP_SHAPES = ((20_000, 2_500), (1_048_576, 131_072), (4_194_304, 524_288))
 # CRAM cohorts of utils/simulate_indep.py (a Markov reference with
 # indel-rich clustered sites, adapter soft clips and ramped quals, one
 # sample): bench.py's independent workload (bench.py:181-191), 120 kb at 30x,
@@ -571,8 +592,9 @@ def slice_phase(work, name, sim_kw):
     shutdown_region_pool()
     if rc != 0:
         raise RuntimeError(f"port genotype on cuda exited {rc}")
-    if seen.get("sw_rot", 0) <= 0 or seen.get("scoring_rows", 0) <= 0 or seen.get("sw_plain", 0):
+    if min(seen.get(k, 0) for k in ("sw_rot", "scoring_rows", "apply_tier", "segment_counters")) <= 0:
         raise AssertionError(f"main path did not run on the kernels: {seen}")
+    _no_plain(seen, f"slice {name}")
     outs = printed.getvalue().split()
     n_records = 0
     for p in outs:
@@ -679,7 +701,7 @@ def align_phase(torch, np, work, dev):
     cfg = SimConfig(**ALIGN_COHORT)
     sim = simulate_cohort(os.path.join(work, name, "sim"), cfg)
     spec = f"{cfg.chrom}:1-{cfg.region_length}"
-    launches = {"device_align": 0, "seed_probe": 0}
+    launches = {"device_align": 0, "seed_probe": 0, "apply_tier": 0, "segment_counters": 0}
 
     # 1. the CLI: on, off, --device cpu with on; and device_seed on
     md5s, walls = {}, {}
@@ -751,7 +773,8 @@ def align_phase(torch, np, work, dev):
         wall.setdefault(mode, []).append(w)
     seen = counters.totals()
     _no_plain(seen, "in-process pools")
-    launches["device_align"] += seen.get("device_align", 0)
+    for k in ("device_align", "apply_tier"):
+        launches[k] += seen.get(k, 0)
     print(f"align: call_pool verify: clean {clean}, fallback {fallback}, divergences {diverged},"
           f" clean share {clean / (clean + fallback):.4f}; streaming (batches of {STREAM_BATCH}"
           f" records) " + ", ".join(f"{m}: stats {v[1]}, {v[2]} launches" for m, v in stream.items())
@@ -1109,6 +1132,66 @@ def gather_phase(dev, verdict, seed):
     return rates
 
 
+def scoring_phase(torch, np, dev):
+    """csrc/site_scoring.cu (apply_tier) against apply_tier_plain and
+    csrc/discovery_pileup.cu (segment_counters) against
+    segment_counters_plain on the card, exactly: on the adversarial rows of
+    tests/test_torch_scoring_batches.py at every allele tier, at
+    tools/bench_flush's four flush shapes at A 2 (512 sites) and A 64 (64
+    sites) with 50 samples, and at PILEUP_SHAPES. CUDA-event ms of kernel
+    and plain version, the flush matrix's copy from pageable memory and
+    from pinned memory (as ObsBatcher writes it), and the byte bound: the rows read once
+    and the output written once over 3.35 TB/s."""
+    from graphtyper_tpu_torch.ops.discovery_pileup import segment_counters, segment_counters_plain
+    from graphtyper_tpu_torch.ops.site_scoring import ALLELE_TIERS, apply_tier, apply_tier_plain
+    from test_torch_scoring_batches import SCORING_SHAPE, flush_matrix, pileup_rows, scoring_rows
+
+    for A in ALLELE_TIERS:
+        mat = torch.from_numpy(scoring_rows(A, 7)).to(dev)
+        _exact(np, f"apply_tier on the adversarial rows at A {A}", apply_tier(mat, A, *SCORING_SHAPE),
+               apply_tier_plain(mat, A, *SCORING_SHAPE))
+    for seed, n, n_events in ((0, 5000, 300), (3, 200_000, 7)):
+        mat = torch.from_numpy(pileup_rows(seed, n, n_events)).to(dev)
+        _exact(np, f"segment_counters on the adversarial rows ({n} rows, {n_events} events)",
+               segment_counters(mat, n_events), segment_counters_plain(mat, n_events))
+    flush = {}
+    for A, n_sites in SCORING_TIERS:
+        for rows in SCORING_ROWS:
+            host = torch.from_numpy(flush_matrix(rows, A, n_sites, SCORING_SAMPLES, seed=rows))
+            pinned = host.pin_memory()
+            mat = pinned.to(dev, non_blocking=True)
+            args = (A, n_sites, SCORING_SAMPLES)
+            got = apply_tier(mat, *args)
+            err = _exact(np, f"apply_tier at A {A}, {rows} rows", got, apply_tier_plain(mat, *args))
+            nbytes = host.numel() * host.element_size() + got.numel() * got.element_size()
+            flush[f"A{A}_{rows}"] = dict(
+                rows=rows, A=A, sites=n_sites, max_abs_err=err, ms=_time_ms(lambda: apply_tier(mat, *args)),
+                plain_ms=_time_ms(lambda: apply_tier_plain(mat, *args), 2),
+                pageable_copy_ms=_time_ms(lambda: host.to(dev), 3),
+                pinned_copy_ms=_time_ms(lambda: pinned.to(dev, non_blocking=True), 3),
+                bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    pileup = {}
+    for rows, n_events in PILEUP_SHAPES:
+        mat = torch.from_numpy(pileup_rows(rows, rows, n_events, n_overflow=0)).to(dev)
+        err = _exact(np, f"segment_counters at {rows} rows", segment_counters(mat, n_events),
+                     segment_counters_plain(mat, n_events))
+        pileup[f"{rows}_rows"] = dict(
+            rows=rows, events=n_events, max_abs_err=err, ms=_time_ms(lambda: segment_counters(mat, n_events)),
+            plain_ms=_time_ms(lambda: segment_counters_plain(mat, n_events), 3),
+            bound=((48 * rows + 64 * n_events) / HBM_BYTES_PER_S * 1e3, "bytes"))
+    print("scoring: apply_tier (csrc/site_scoring.cu) == apply_tier_plain and segment_counters"
+          " (csrc/discovery_pileup.cu) == segment_counters_plain, max |diff| 0, on the adversarial rows at"
+          f" A {', '.join(map(str, ALLELE_TIERS))} and at every shape below; CUDA-event ms, {SCORING_SAMPLES}"
+          " samples: " + "; ".join(
+              f"{k} ({v['sites']} sites): kernel {v['ms']:.4f}, plain {v['plain_ms']:.3f}, bound"
+              f" {v['bound'][0]:.4f} ({v['bound'][1]}), copy pageable {v['pageable_copy_ms']:.3f} / pinned"
+              f" {v['pinned_copy_ms']:.3f}" for k, v in flush.items()), flush=True)
+    print("pileup: CUDA-event ms: " + "; ".join(
+        f"{k}, {v['events']} events: kernel {v['ms']:.4f}, plain {v['plain_ms']:.3f}, bound"
+        f" {v['bound'][0]:.4f} ({v['bound'][1]})" for k, v in pileup.items()), flush=True)
+    return dict(apply_tier=flush, segment_counters=pileup)
+
+
 def forward_inputs(np, name, R, L, H, A):
     """entry()'s inputs, or bench.py's kernel_secondary inputs (bench.py:265-271)."""
     from graphtyper_tpu_torch.entry import example_inputs
@@ -1267,12 +1350,14 @@ from graphtyper_tpu_torch import cli, counters
 from graphtyper_tpu_torch.parallel import distributed
 runs = {}
 distributed.initialize(f"127.0.0.1:{port1}", 2, rank)
+n = len(meta["sams"])
 for rep in ("0", "1"):
     os.environ["GT_REP_SHARD"] = rep
     counters.reset()
     t0 = time.perf_counter()
     out = distributed.genotype_distributed(meta["fasta"], meta["sams"], meta["region"], meta[f"out{rep}"], device)
-    runs[f"rep_shard={rep}"] = dict(out=out, wall=time.perf_counter() - t0, counters=counters.totals())
+    runs[f"rep_shard={rep}"] = dict(out=out, wall=time.perf_counter() - t0, counters=counters.totals(),
+                                    work=f"samples {n * rank // 2}-{n * (rank + 1) // 2 - 1} of {n}")
 distributed.shutdown()
 os.environ.pop("GT_REP_SHARD")
 counters.reset()
@@ -1282,7 +1367,10 @@ with contextlib.redirect_stdout(printed):
     rc = cli.main(["genotype", meta["cli_fasta"], "--region_file", meta["region_file"], "-O", meta["cli_out"],
                    "--device", device, "--threads", "4", "--num_hosts", "2", "--host_id", str(rank),
                    "--coordinator", f"127.0.0.1:{port2}", *meta["cli_sams"]])
-runs["cli"] = dict(out=printed.getvalue().split(), wall=time.perf_counter() - t0, counters=counters.totals())
+with open(meta["region_file"]) as f:
+    regions = [line.strip() for line in f if line.strip()]
+runs["cli"] = dict(out=printed.getvalue().split(), wall=time.perf_counter() - t0, counters=counters.totals(),
+                   work="region " + ", ".join(distributed.assign_regions(regions, 2, rank)))
 assert rc == 0, rc
 print("DIST_CHILD " + json.dumps(runs))
 """
@@ -1365,18 +1453,22 @@ def dist_phase(work, dev):
         raise AssertionError(f"dist: the CLI's --num_hosts 2 outputs differ from the single run: {cli_files}")
     launches = []
     for r, c in enumerate(children):
-        total = {k: sum(run["counters"].get(k, 0) for run in c.values()) for k in ("sw_rot", "device_align")}
+        total = {k: sum(run["counters"].get(k, 0) for run in c.values())
+                 for k in ("sw_rot", "device_align", "apply_tier", "segment_counters")}
         launches.append(total)
         if dev.type == "cuda":
             for run in c.values():
                 _no_plain(run["counters"], f"dist child {r}")
             if min(total.values()) <= 0:
-                raise AssertionError(f"dist: child {r} launched no sw_rot or no device_align: {total}")
+                raise AssertionError(f"dist: child {r} launched no sw_rot, device_align, apply_tier or"
+                                     f" segment_counters: {total}")
     print(f"dist: two processes (gloo, 127.0.0.1) on {dev} with GT_DEVICE_ALIGN=on in {wall:.3f} s (single-process"
           f" runs {single_wall:.3f} s): genotype_distributed on {e2e.region_length // 1000} kb, {e2e.n_samples} samples,"
           f" {sim.n_reads} reads, plain and GT_REP_SHARD=1, host 0's md5 {single} == single process; CLI --num_hosts 2"
           f" on two 50 kb regions: {len(cli_files)} VCFs, md5 {_md5(cli_files)} == single process; per child"
-          f" sw_rot / device_align launches {launches}; walls " + json.dumps(
+          f" launches {launches}; sw_rot launches by child and run, with the run's work: " + json.dumps(
+              [{k: f"{v['counters'].get('sw_rot', 0)} ({v['work']})" for k, v in c.items()} for c in children])
+          + "; walls " + json.dumps(
               [{k: round(v["wall"], 3) for k, v in c.items()} for c in children])
           + f"; single run counters {json.dumps(single_seen, sort_keys=True)}, CLI {json.dumps(cli_seen, sort_keys=True)}",
           flush=True)
@@ -1670,21 +1762,28 @@ def main() -> int:
     bench_phase("--rot")
     lap("bench")
     rot_launches = 0
+    scored = {"apply_tier": 0, "segment_counters": 0}  # the two scoring kernels' launches on the paths
+
+    def count(seen):
+        for k in scored:
+            scored[k] += seen.get(k, 0)
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         sims = {}
         for name, sim_kw in SLICES:
             seen, *sims[name] = slice_phase(work, name, sim_kw)
             rot_launches += seen["sw_rot"]
+            count(seen)
             lap(f"slice {name}")
         pools = pools_phase(work)
         lap("pools")
         align = align_phase(torch, np, work, dev)
         lap("align")
-        sv_phase(work)
+        sv = sv_phase(work)
         lap("sv")
         camou = camou_phase(work)
         lap("camou")
-        hla_phase(work)
+        hla = hla_phase(work)
         lap("hla")
         discover = discover_phase(work, *sims["sw"])
         lap("discover")
@@ -1702,6 +1801,12 @@ def main() -> int:
         lap("benchtools")
     for runs in (pools, camou, discover, indep):
         rot_launches += sum(seen.get("sw_rot", 0) for seen, _ in runs.values())
+    for runs in (pools, sv, camou, hla, discover, indep):
+        for seen, _ in runs.values():
+            count(seen)
+    count(align["launches"])
+    for seen in (mesh["counters"], fuzz["counters"], soak["counters"], *dist["launches"]):
+        count(seen)
     for seen in (fuzz["counters"], soak["counters"]):
         rot_launches += seen.get("sw_rot", 0)
         for k in ("device_align", "seed_probe"):
@@ -1719,6 +1824,8 @@ def main() -> int:
     seed = seed_phase(torch, np, dev, inputs, sm_clock, n_sm)
     gather = gather_phase(dev, verdict, seed)
     lap("verdict, seed, gather")
+    scoring = scoring_phase(torch, np, dev)
+    lap("scoring")
     forward_phase(torch, np, dev, sm_clock, n_sm)
     lap("forward")
     prefetch_phase(torch, np, dev)
@@ -1744,6 +1851,21 @@ def main() -> int:
                                  gathers=v["gathers"], gather_ms=v["gather_ms"])
                             for n, v in times.items()])
 
+    def scoring_entry(name, source, replaces, top):
+        """A kernels-line entry timed at the shape `top`, with every shape's
+        times and bound under `shapes`."""
+        times = scoring[name]
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=scored[name],
+                    max_abs_err=max(v["max_abs_err"] for v in times.values()), ms=times[top]["ms"],
+                    plain_ms=times[top]["plain_ms"], bound_ms=times[top]["bound"][0],
+                    bound_by=times[top]["bound"][1], library_ms=None,
+                    shapes=[dict(shape=k, ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                                 **{c: v[c] for c in ("pageable_copy_ms", "pinned_copy_ms") if c in v})
+                            for k, v in times.items()])
+
+    for k, n in scored.items():
+        if n <= 0:
+            raise AssertionError(f"the main paths launched no {k}")
     main = row["times"]["main"]
     bound_ms, bound_by = main["bound"]
     common = dict(route="cuda", bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -1763,6 +1885,10 @@ def main() -> int:
                      "graphtyper_tpu/ops/device_align.py:107", verdict),
         gather_entry("seed_probe", "graphtyper_tpu_torch/csrc/seed_probe.cu",
                      "graphtyper_tpu/ops/seed_probe.py:92", seed),
+        scoring_entry("apply_tier", "graphtyper_tpu_torch/csrc/site_scoring.cu",
+                      "graphtyper_tpu/ops/site_scoring.py:141", f"A2_{SCORING_ROWS[-1]}"),
+        scoring_entry("segment_counters", "graphtyper_tpu_torch/csrc/discovery_pileup.cu",
+                      "graphtyper_tpu/ops/discovery_pileup.py:85", f"{PILEUP_SHAPES[-1][0]}_rows"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -7,7 +7,8 @@ Its file name carries a hash of the sources and the flags, so a process
 that finds it already built, such as a region worker after its parent
 built it before the fan-out, loads it without compiling.
 
-`build_shared` also builds the host libraries of the port (host.py, the
+`check_cuda` is the layout check every kernel wrapper makes before its
+launch. `build_shared` also builds the host libraries of the port (host.py, the
 C++ engine of io/native.py).
 """
 
@@ -27,13 +28,33 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: build outputs; listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parent.parent / "kernel_build"
 
-CUDA_SOURCES = ("sw_rot.cu", "sw_row.cu", "device_align.cu", "seed_probe.cu")
+CUDA_SOURCES = (
+    "sw_rot.cu", "sw_row.cu", "device_align.cu", "seed_probe.cu", "site_scoring.cu",
+    "discovery_pileup.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _LIB = None
+
+
+def check_cuda(name: str, dev, tensors) -> None:
+    """The layout the CUDA kernels take: tensors on one CUDA device, of the
+    given dtype and rank, contiguous. `tensors` holds (arg, tensor, dtype,
+    ndim)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: kernel inputs must be CUDA tensors, got {dev}")
+    for arg, t, dtype, ndim in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{name}: {arg} must have {ndim} dims, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
 
 
 def find_nvcc() -> str:
@@ -147,5 +168,12 @@ def load(build_dir: Path | None = None) -> ctypes.CDLL:
     lib.gt_device_align.argtypes = [vp] * 11 + [i32] * 8 + [vp]
     lib.gt_seed_probe.restype = i32
     lib.gt_seed_probe.argtypes = [vp] * 5 + [i32] * 3 + [vp]
+    i64 = ctypes.c_int64
+    lib.gt_site_scoring_size.restype = i64
+    lib.gt_site_scoring_size.argtypes = [i32, i64, i64]
+    lib.gt_site_scoring.restype = i32
+    lib.gt_site_scoring.argtypes = [vp, i64, i32, i64, i64, vp, vp, vp]
+    lib.gt_discovery_pileup.restype = i32
+    lib.gt_discovery_pileup.argtypes = [vp, i64, i64, vp, vp]
     _LIB = lib
     return lib

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from graphtyper_tpu_torch import counters, kernels
-from graphtyper_tpu_torch.ops.seed_probe import _check_cuda, _upload_rows, padded_rows
+from graphtyper_tpu_torch.ops.seed_probe import _upload_rows, padded_rows
 
 K = 32
 LABEL_CAP = 6  # per-kmer gathered labels; bigger spans fall back
@@ -209,8 +209,8 @@ class PendingVerdicts:
         # a batch without rows still hands the engine a non-null pointer
         out = self._host[: self.n_rows].numpy() if self.n_rows else np.zeros((0, OUT_COLS), np.int32)
         wall = self._launch_s + time.perf_counter() - t0
-        counters.COUNTS["device_align_wall_s"] += wall
-        counters.COUNTS["device_align_rows"] += self.n_rows
+        counters.add("device_align_wall_s", wall)
+        counters.add("device_align_rows", self.n_rows)
         with _ALIGN_LOCK:
             ALIGN_STATS["align_rows"] += self.n_rows
             ALIGN_STATS["align_wall_s"] += wall
@@ -284,12 +284,12 @@ class DeviceAligner:
             raise ValueError(f"verdicts: nk {nk} but the kmer matrix has {hi.shape[1]} columns")
         steps = dict(key_steps=self.key_steps, ref_steps=self.ref_steps)
         if hi.device.type == "cpu":
-            counters.COUNTS["device_align_plain"] += 1
+            counters.add("device_align_plain")
             return verdicts_plain(hi, lo, valid, tails, lens, *self.tables, **steps)
         dev = hi.device
         lib = kernels.load()
         S = hi.shape[0]
-        _check_cuda("verdicts", dev, (
+        kernels.check_cuda("verdicts", dev, (
             ("hi", hi, torch.uint32, 2), ("lo", lo, torch.uint32, 2), ("valid", valid, torch.uint8, 2),
             ("tails", tails, torch.uint8, 2), ("lens", lens, torch.int32, 1),
             *((n, t, t.dtype, t.dim()) for n, t in zip(PACKED, self.packed)),
@@ -314,7 +314,7 @@ class DeviceAligner:
             )
         if rc != 0:
             raise RuntimeError(f"device_align kernel launch failed: cudaGetLastError() = {rc}")
-        counters.COUNTS["device_align"] += 1
+        counters.add("device_align")
         return out
 
     def verdicts_async(self, kmers, tails: torch.Tensor, lens: torch.Tensor, n_rows: int,

@@ -3,9 +3,13 @@
 Port of graphtyper_tpu/ops/discovery_pileup.py:117 aggregate_rows: six
 segment sums (hq, lq, proper, first, rev, clip) and two segment maxima
 (mapq, distance) per event, with empty maxima clamped to 0 (:94-112). Every
-row batch goes to the given device; there is no row-count threshold. The
-three smallest distinct read positions stay on the host (`_uniq_pos3`,
-copied with `count_pairs` from the JAX module).
+row batch goes to the given device; there is no row-count threshold.
+`segment_counters`, the counterpart of the jitted `_jitted_agg_cached`
+(:85-116), launches the hand-written kernel csrc/discovery_pileup.cu on a
+CUDA tensor, or raises, and runs `segment_counters_plain` (`index_add_`
+and `scatter_reduce_`) on a CPU tensor. The three smallest distinct read
+positions stay on the host (`_uniq_pos3`, copied with `count_pairs` from
+the JAX module).
 """
 
 from __future__ import annotations
@@ -13,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch import counters, kernels
 
-__all__ = ["N_COUNTERS", "aggregate_rows", "count_pairs", "segment_counters"]
+__all__ = ["N_COUNTERS", "aggregate_rows", "count_pairs", "segment_counters", "segment_counters_plain"]
 
 N_COUNTERS = 11  # hq lq proper first rev clip max_mapq max_dist up1 up2 up3
 
@@ -64,8 +68,32 @@ def count_pairs(p_a: np.ndarray, p_b: np.ndarray, n_events: int):
 
 def segment_counters(mat: torch.Tensor, n_events: int) -> torch.Tensor:
     """[n_events, 8] int64 counters from the [6, N] row matrix (ev, dhq,
-    dlq, bits, mapq, dist). Rows with ev == n_events (the overflow segment
-    padding uses) are dropped."""
+    dlq, bits, mapq, dist), on the matrix's device. Rows with ev ==
+    n_events (the overflow segment padding uses) are dropped. A CPU tensor
+    runs `segment_counters_plain`; a CUDA tensor (int64, contiguous) goes
+    to csrc/discovery_pileup.cu, built at first use, or the call raises."""
+    if mat.device.type == "cpu":
+        return segment_counters_plain(mat, n_events)
+    dev = mat.device
+    lib = kernels.load()
+    kernels.check_cuda("segment_counters", dev, (("mat", mat, torch.int64, 2),))
+    if mat.shape[0] != 6:
+        raise ValueError(f"segment_counters: mat must have 6 rows, got {tuple(mat.shape)}")
+    with torch.cuda.device(dev):
+        out = torch.zeros((n_events, 8), dtype=torch.int64, device=dev)
+        rc = lib.gt_discovery_pileup(mat.data_ptr(), mat.shape[1], n_events, out.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"discovery_pileup kernel launch failed: cudaGetLastError() = {rc}")
+    counters.add("segment_counters")
+    return out
+
+
+def segment_counters_plain(mat: torch.Tensor, n_events: int) -> torch.Tensor:
+    """The torch-op version of `segment_counters`: `index_add_` for the
+    sums, `scatter_reduce_("amax")` from zeros for the maxima. Each call
+    bumps the `segment_counters_plain` counter, on any device."""
+    counters.add("segment_counters_plain")
     mat = mat.to(torch.int64)
     ev, bits = mat[0], mat[3]
     sums = torch.stack(
@@ -100,7 +128,7 @@ def aggregate_rows(
         out[:, 8:11] = -1
         return out
     mat = np.stack([np.asarray(a, dtype=np.int64) for a in (r_ev, r_dhq, r_dlq, r_bits, r_mapq, r_dist)])
-    counters.COUNTS["pileup_rows"] += n
+    counters.add("pileup_rows", n)
     out[:, :8] = segment_counters(torch.from_numpy(mat).to(device), n_events).cpu().numpy()
     out[:, 8:11] = _uniq_pos3(r_ev, r_readpos, n_events)
     return out

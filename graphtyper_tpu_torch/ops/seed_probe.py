@@ -97,34 +97,17 @@ def probe_bits_plain(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
     return (flat.reshape(S, prow, 32) * weights).sum(-1).to(torch.uint32)
 
 
-def _check_cuda(name: str, dev, tensors) -> None:
-    """The layout the CUDA kernels take: tensors on one CUDA device, of the
-    given dtype and rank, contiguous. `tensors` holds (arg, tensor, dtype,
-    ndim)."""
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: kernel inputs must be CUDA tensors, got {dev}")
-    for arg, t, dtype, ndim in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
-        if t.dim() != ndim:
-            raise ValueError(f"{name}: {arg} must have {ndim} dims, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-
-
 def probe_bits(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
                bitset: torch.Tensor, bits: int) -> torch.Tensor:
     """Candidate words [S, prow_for(nk)] uint32 on the inputs' device. CPU
     tensors run `probe_bits_plain`; CUDA tensors go to csrc/seed_probe.cu,
     which is built at first use, or the call raises."""
     if hi.device.type == "cpu":
-        counters.COUNTS["seed_probe_plain"] += 1
+        counters.add("seed_probe_plain")
         return probe_bits_plain(hi, lo, valid, bitset, bits)
     dev = hi.device
     lib = kernels.load()
-    _check_cuda("probe_bits", dev, (
+    kernels.check_cuda("probe_bits", dev, (
         ("hi", hi, torch.uint32, 2), ("lo", lo, torch.uint32, 2),
         ("valid", valid, torch.uint8, 2), ("bitset", bitset, torch.uint32, 1),
     ))
@@ -146,7 +129,7 @@ def probe_bits(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
         )
     if rc != 0:
         raise RuntimeError(f"seed_probe kernel launch failed: cudaGetLastError() = {rc}")
-    counters.COUNTS["seed_probe"] += 1
+    counters.add("seed_probe")
     return out
 
 

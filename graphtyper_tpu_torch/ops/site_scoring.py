@@ -1,19 +1,28 @@
 """Batched observation scoring on a torch device.
 
-Port of graphtyper_tpu/ops/site_scoring.py: `apply_tier` is the torch form
-of the jitted `_apply_tier_impl` (:144) and returns the same flat vector in
-the same order (:221-234); `ObsBatcher` (:498) applies every tier on its
-device, whatever the row count (no host threshold).
+Port of graphtyper_tpu/ops/site_scoring.py: `apply_tier` is the
+counterpart of the jitted `_apply_tier_impl` (:141-234) and returns the
+same flat vector in the same order (:221-234). On a CUDA tensor it launches
+the hand-written kernel csrc/site_scoring.cu (two launches a flush, built
+at first use) or raises; on a CPU tensor it runs `apply_tier_plain`, the
+torch-op version (integer segment sums with `index_add_` and a Gram
+product, in chunks of `_chunk_rows(A)` rows that bound the [N, T] term).
+`ObsBatcher` (:498) applies every tier on its device, whatever the row
+count (no host threshold), and writes each flush's rows for a CUDA device
+into pinned host memory, copied without blocking the host on the current
+stream. The pinned block comes from torch's caching host allocator, which
+keeps it for the next flush and hands it out again only after the event it
+records on the copy has passed.
 Given a mesh (parallel/mesh.py) it applies each flush over the mesh (the
-form of :278 `_jitted_apply_tier_sharded`): the rows split into one
+form of :279 `_jitted_apply_tier_sharded`): the rows split into one
 contiguous shard a mesh entry, each entry applies its shard on its
 device, and the flat int64 vectors are summed on the first device and, where
 the mesh's host axis spans a process group, over the group. The
 observation layout, the tier buffers, the >64-allele host update and the
 materialization into site state are the JAX module's, copied.
 
-Every sum is an integer segment sum taken in int64 with `index_add_`, so
-the result is exact and independent of the order of the rows.
+Every sum is an integer sum taken in int64, so the result is exact and
+independent of the order of the rows, on the kernel and the plain path.
 
 With GT_SCORING_STATS set to a path, every `finalize()` appends one JSON
 line of telemetry to it (O_APPEND, so region workers can share the file):
@@ -42,11 +51,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from graphtyper_tpu_torch import counters
+from graphtyper_tpu_torch import counters, kernels
 
 __all__ = [
-    "ObsBatcher", "apply_tier", "split_totals", "tier_for", "totals_from_numpy",
-    "totals_to_numpy",
+    "ObsBatcher", "apply_tier", "apply_tier_plain", "split_totals", "tier_for",
+    "totals_from_numpy", "totals_to_numpy",
 ]
 
 # coverage class encoding for buffered observations (host codes NO/MULTI_*
@@ -130,7 +139,8 @@ def _triangle_xy(A: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _chunk_rows(A: int) -> int:
-    """Rows per device call, sized so the [N, A, A] Gram tensor stays small."""
+    """Rows per `apply_tier_plain` step, sized so the [N, A, A] Gram tensor
+    stays small."""
     return max(4096, min(1 << 18, (1 << 23) // (A * A)))
 
 
@@ -144,12 +154,52 @@ def _seg_sum(idx: torch.Tensor, w: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def apply_tier(obs_mat: torch.Tensor, A: int, n_sites: int, n_samples: int) -> torch.Tensor:
-    """One chunk of observation rows -> the flat int64 state-delta vector.
+    """Observation rows -> the flat int64 state-delta vector, on the rows'
+    device.
 
     `obs_mat` is the [14, N] int32 matrix in OBS_FIELDS order (the explain
     bitmaps as the int32 bit patterns of their uint32 words). Padding rows
     (eps 0, bits 0, cov COV_PAD, zero scalars) add nothing. Port of
-    graphtyper_tpu/ops/site_scoring.py:144 _apply_tier_impl."""
+    graphtyper_tpu/ops/site_scoring.py:141 _apply_tier_impl. A CPU tensor
+    runs `apply_tier_plain`; a CUDA tensor goes to csrc/site_scoring.cu,
+    built at first use, all N rows in one launch of each of its two
+    passes, or the call raises."""
+    if obs_mat.device.type == "cpu":
+        return apply_tier_plain(obs_mat, A, n_sites, n_samples)
+    dev = obs_mat.device
+    lib = kernels.load()
+    kernels.check_cuda("apply_tier", dev, (("obs_mat", obs_mat, torch.int32, 2),))
+    if obs_mat.shape[0] != len(OBS_FIELDS):
+        raise ValueError(f"apply_tier: obs_mat must have {len(OBS_FIELDS)} rows, got {tuple(obs_mat.shape)}")
+    if A not in ALLELE_TIERS:
+        raise ValueError(f"apply_tier: A must be one of {ALLELE_TIERS}, got {A}")
+    with torch.cuda.device(dev):
+        out = torch.zeros(lib.gt_site_scoring_size(A, n_sites, n_samples), dtype=torch.int64, device=dev)
+        u = torch.zeros(n_sites * n_samples * A, dtype=torch.int64, device=dev)
+        rc = lib.gt_site_scoring(obs_mat.data_ptr(), obs_mat.shape[1], A, n_sites, n_samples,
+                                 out.data_ptr(), u.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"site_scoring kernel launch failed: cudaGetLastError() = {rc}")
+    counters.add("apply_tier")
+    return out
+
+
+def apply_tier_plain(obs_mat: torch.Tensor, A: int, n_sites: int, n_samples: int) -> torch.Tensor:
+    """The torch-op version of `apply_tier`: the rows in chunks of
+    `_chunk_rows(A)` (bounds the [N, T] Gram term), their vectors summed.
+    Each call bumps the `apply_tier_plain` counter, on any device."""
+    counters.add("apply_tier_plain")
+    chunk = _chunk_rows(A)
+    total = None
+    for lo in range(0, max(obs_mat.shape[1], 1), chunk):
+        vec = _apply_chunk_plain(obs_mat[:, lo : lo + chunk], A, n_sites, n_samples)
+        total = vec if total is None else total.add_(vec)
+    return total
+
+
+def _apply_chunk_plain(obs_mat: torch.Tensor, A: int, n_sites: int, n_samples: int) -> torch.Tensor:
+    """One chunk of rows by torch ops: segment sums with `index_add_`, the
+    PL triangle as u_x + u_y + W_xy from a [N, T] product."""
     S = n_sites * n_samples
     dev = obs_mat.device
     rows = obs_mat.to(torch.int64)
@@ -206,10 +256,10 @@ def apply_tier_sharded(mesh, obs_mat: torch.Tensor, A: int, n_sites: int,
     shards = torch.tensor_split(obs_mat, mesh.size, dim=1)
     total = None
     for i, dev in mesh.local_entries():
-        counters.COUNTS[f"scoring_rows_shard{i}"] += shards[i].shape[1]
+        counters.add(f"scoring_rows_shard{i}", shards[i].shape[1])
         if dev.type == "cuda":
             add_stats(h2d_bytes=shards[i].numel() * shards[i].element_size())
-        vec = apply_tier(shards[i].to(dev), A, n_sites, n_samples)
+        vec = apply_tier(shards[i].to(dev).contiguous(), A, n_sites, n_samples)
         total = vec if total is None else total.add_(vec.to(total.device))
     return mesh.host_sum(total)
 
@@ -217,24 +267,16 @@ def apply_tier_sharded(mesh, obs_mat: torch.Tensor, A: int, n_sites: int,
 def flush_rows(mat: torch.Tensor, A: int, n_sites: int, n_samples: int, device: torch.device,
                mesh=None) -> torch.Tensor:
     """One scoring flush of a tier's [14, N] row matrix: the rows to
-    `device` in one copy (a mesh ships its own shards), then `apply_tier`
-    over chunks of `_chunk_rows(A)` rows (bounds the [N, T] Gram term),
-    each chunk over the mesh when there is one; returns the summed state
-    vector, on `device`."""
-    if mesh is None:
-        if mat.device.type == "cpu" and device.type == "cuda":
-            add_stats(h2d_bytes=mat.numel() * mat.element_size())
-        mat = mat.to(device)
-    chunk = _chunk_rows(A)
-    total = None
-    for lo in range(0, mat.shape[1], chunk):
-        part = mat[:, lo : lo + chunk]
-        if mesh is None:
-            vec = apply_tier(part, A, n_sites, n_samples)
-        else:
-            vec = apply_tier_sharded(mesh, part, A, n_sites, n_samples)
-        total = vec if total is None else total.add_(vec)
-    return total
+    `device` in one non-blocking copy (a mesh ships its own shards), then
+    one `apply_tier` over all of them, over the mesh when there is one;
+    returns the summed state vector, on `device`. The copy leaves the host
+    free only when `mat` is pinned, as `ObsBatcher` makes it."""
+    if mesh is not None:
+        return apply_tier_sharded(mesh, mat, A, n_sites, n_samples)
+    if mat.device.type == "cpu" and device.type == "cuda":
+        add_stats(h2d_bytes=mat.numel() * mat.element_size())
+        mat = mat.to(device, non_blocking=True)
+    return apply_tier(mat, A, n_sites, n_samples)
 
 
 def split_totals(vec: torch.Tensor, A: int, n_sites: int, n_samples: int) -> dict:
@@ -263,10 +305,10 @@ def totals_from_numpy(d: dict, device: torch.device | str) -> dict:
     return {k: torch.as_tensor(np.asarray(v, dtype=np.int64), device=device) for k, v in d.items()}
 
 
-def obs_matrix(cols_np: dict, n: int) -> np.ndarray:
-    """[14, n] int32 row matrix of one tier's materialized columns; the
-    uint32 explain words ride as their int32 bit patterns."""
-    mat = np.empty((len(OBS_FIELDS), n), dtype=np.int32)
+def obs_matrix(cols_np: dict, n: int, out: np.ndarray | None = None) -> np.ndarray:
+    """[14, n] int32 row matrix of one tier's materialized columns, in `out`
+    when given; the uint32 explain words ride as their int32 bit patterns."""
+    mat = np.empty((len(OBS_FIELDS), n), dtype=np.int32) if out is None else out
     for i, k in enumerate(OBS_FIELDS):
         v = cols_np[k][:n]
         mat[i] = v.astype(np.uint32).view(np.int32) if k in ("bits_lo", "bits_hi") else v
@@ -373,9 +415,10 @@ class _TierBuffer:
 
 class ObsBatcher:
     """Accumulates per-(read, site) observations and applies them to the
-    HaplotypeSite states in chunked passes per allele tier on `device`, or
-    over the entries of `mesh`
-    (graphtyper_tpu/ops/site_scoring.py:498 without its host path)."""
+    HaplotypeSite states, one flush per allele tier on `device`, or over
+    the entries of `mesh`
+    (graphtyper_tpu/ops/site_scoring.py:498 without its host path). A CUDA
+    device's flushes are written into pinned host memory."""
 
     def __init__(self, sites, n_samples: int, device: torch.device | str,
                  mesh=None):
@@ -383,6 +426,7 @@ class ObsBatcher:
         self.n_samples = n_samples
         self.device = torch.device(device)
         self.mesh = mesh  # set -> applied over its entries
+        self._pin = mesh is None and self.device.type == "cuda"
         self.tiers: dict[int, _TierBuffer] = {}
         self._totals: dict = {}  # tier -> running flush totals (site-major)
         # exact saturation tracking (haplotype.cpp:528-533): max_log_score is
@@ -483,32 +527,37 @@ class ObsBatcher:
         self._flush_tier_collect(tier, self._flush_tier_launch(tier, buf))
 
     def _flush_tier_launch(self, tier: int, buf: _TierBuffer):
-        """Ship the tier's rows in one transfer and apply them in chunks of
-        `_chunk_rows(A)` rows (bounds the [N, T] Gram term), each chunk over
-        the mesh when there is one; returns the summed device vector, or
-        None when the tier holds no rows."""
+        """Ship the tier's rows in one transfer (from pinned memory to a
+        CUDA device) and apply them in one `flush_rows`, over the mesh
+        when there is one; returns the summed device vector, or None when
+        the tier holds no rows."""
         cols_np, n = buf.materialize_cols()
         buf.blocks = []
         buf.cols = {k: [] for k in OBS_FIELDS}
         if n == 0:
             return None
-        counters.COUNTS["scoring_rows"] += n
+        counters.add("scoring_rows", n)
         t0 = time.perf_counter()
         n_sites = len(buf.site_ids)
-        mat = torch.from_numpy(obs_matrix(cols_np, n))
+        if self._pin:
+            mat = torch.empty((len(OBS_FIELDS), n), dtype=torch.int32, pin_memory=True)
+            obs_matrix(cols_np, n, out=mat.numpy())
+        else:
+            mat = torch.from_numpy(obs_matrix(cols_np, n))
         total = flush_rows(mat, buf.A, n_sites, self.n_samples, self.device, self.mesh)
         add_stats(device_rows=n, device_wall_s=time.perf_counter() - t0)
         return total, n_sites
 
     def _flush_tier_collect(self, tier: int, launched) -> None:
-        """Copy the tier's summed totals to the host and fold them into the
+        """Copy the tier's summed totals to the host in one copy of the flat
+        vector (the JAX op's one fetch, :220) and fold them into the
         running totals that `finalize` materializes."""
         if launched is None:
             return
         t0 = time.perf_counter()
         vec, n_sites = launched
         A = self.tiers[tier].A
-        self._accumulate(tier, totals_to_numpy(split_totals(vec, A, n_sites, self.n_samples)))
+        self._accumulate(tier, totals_to_numpy(split_totals(vec.cpu(), A, n_sites, self.n_samples)))
         add_stats(device_wall_s=time.perf_counter() - t0)
 
     def _materialize(self, buf: _TierBuffer, out: dict, A: int) -> None:

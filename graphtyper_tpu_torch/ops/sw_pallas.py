@@ -53,7 +53,7 @@ def sw_align_pallas(
     to the CUDA kernel, which is built at first use, or the call raises."""
     scores = dict(match=match, mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend, clip=clip)
     if queries.device.type == "cpu":
-        counters.COUNTS["sw_plain"] += 1
+        counters.add("sw_plain")
         return sw_align_plain(queries, q_lens, databases, d_lens, **scores)
     lib = kernels.load()
     check_kernel_inputs("sw_align_pallas", queries, q_lens, databases, d_lens)
@@ -72,5 +72,5 @@ def sw_align_pallas(
         )
     if rc != 0:
         raise RuntimeError(f"sw_row kernel launch failed: cudaGetLastError() = {rc}")
-    counters.COUNTS["sw_row"] += 1
+    counters.add("sw_row")
     return out[0], out[1], out[2]

@@ -191,7 +191,7 @@ def sw_align_rot(
     to the CUDA kernel, which is built at first use, or the call raises."""
     scores = dict(match=match, mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend, clip=clip)
     if queries.device.type == "cpu":
-        counters.COUNTS["sw_plain"] += 1
+        counters.add("sw_plain")
         return sw_align_plain(queries, q_lens, databases, d_lens, **scores)
     lib = kernels.load()
     check_kernel_inputs("sw_align_rot", queries, q_lens, databases, d_lens)
@@ -212,5 +212,5 @@ def sw_align_rot(
         )
     if rc != 0:
         raise RuntimeError(f"sw_rot kernel launch failed: cudaGetLastError() = {rc}")
-    counters.COUNTS["sw_rot"] += 1
+    counters.add("sw_rot")
     return out[0], out[1], out[2]

@@ -4,27 +4,33 @@ function every `ObsBatcher` flush calls, on a CUDA device against the same
 function on the CPU device.
 
 A scoring flush ships one tier's observation rows as a [14, rows] int32
-matrix in one copy, applies them with `apply_tier` in chunks of
-`_chunk_rows(A)` rows and copies the summed state vector back
-(`ObsBatcher._flush_tier_launch`, `_flush_tier_collect`).
-This tool times that flush at the JAX tool's cohort-scale shapes (65,536
-to 4,194,304 rows, A = 2, 512 sites, --samples samples) from the JAX
-tool's synthetic rows (`synth_rows`, the same numpy draws).
+matrix in one copy, applies them with `apply_tier` and copies the summed
+state vector back (`ObsBatcher._flush_tier_launch`, `_flush_tier_collect`).
+On a CUDA device the matrix lies in pinned memory, as `ObsBatcher` writes
+it, and is copied without blocking the host; `apply_tier` is csrc/site_scoring.cu, all rows in one launch of each of its
+two passes; on the CPU device it is `apply_tier_plain`, in chunks of
+`_chunk_rows(A)` rows. This tool times that flush at the JAX tool's
+cohort-scale shapes (65,536 to 4,194,304 rows, A = 2, 512 sites, --samples
+samples) from the JAX tool's synthetic rows (`synth_rows`, the same numpy
+draws).
 
 The JAX tool's "host" leg was its numpy twin `_apply_rows_numpy`; the port
 has no batched numpy apply, so the counterpart is the same flush on the
 CPU device (`host_ms`, host clock). The device leg (`--device`, cuda by
 default) is timed with CUDA events: the first flush (`device_ms_first`,
 kernel caches cold), the median of 3 steady flushes (`device_ms_steady`:
-the copy to the card, the chunked apply, the copy back), the copy alone
-(`h2d_ms`) and the apply alone on resident rows (`device_compute_ms`).
-The card's totals must equal the CPU's exactly; a difference fails the
-tool. On the card each line also counts the CUDA kernels of one flush
-(`cuda_kernels_per_flush`, torch.profiler) and gives the flush's byte
-bound: the rows read once and the state vector written once over 3.35 TB/s
-(`bound_ms`), and the copy's bytes over the rate of a 256 MB pinned copy
-measured in the same run (`h2d_bound_ms`; the flush copies from pageable
-memory).
+the pinned copy to the card, the apply, the copy back), the pinned copy
+alone (`h2d_ms`) beside the same bytes from pageable memory
+(`h2d_pageable_ms`), and the apply alone on resident rows
+(`device_compute_ms`). The card's totals must equal the CPU's exactly; a
+difference fails the tool. On the card each line also counts the CUDA
+kernels of one flush (`cuda_kernels_per_flush`, torch.profiler) and the
+launches of one flush by the scoring and pileup kernels' counters
+(`launches`), and gives the flush's byte bound: the rows read once and the
+state vector written once over 3.35 TB/s (`bound_ms`), and the copy's bytes
+over the rate of a 256 MB pinned copy measured in the same run
+(`h2d_bound_ms`). `chunks` is the applies a flush makes: 1 on the card,
+the plain version's chunks on the CPU.
 
 Reference analog of the work: haplotype.cpp:462-585 explain_to_score per
 read, summed over the cohort (src/typer/caller.cpp:313-437 thread loop).
@@ -36,7 +42,8 @@ Prints one JSON line per shape with the JAX tool's keys ("rows", "A",
 "sites", "samples", "host_ms", "device_ms_steady", "device_ms_first",
 "h2d_mb", "device_compute_ms", "chunks", "winner",
 "speedup_device_over_host") and the port's own ("device", "h2d_ms",
-"bound_ms", "h2d_bound_ms", "cuda_kernels_per_flush").
+"h2d_pageable_ms", "bound_ms", "h2d_bound_ms", "cuda_kernels_per_flush",
+"launches").
 """
 
 from __future__ import annotations
@@ -89,10 +96,11 @@ def synth_rows(n: int, A: int, n_sites: int, n_samples: int, seed: int = 0):
 def flush(mat: torch.Tensor, A: int, n_sites: int, n_samples: int, device: torch.device) -> dict:
     """One flush as `ObsBatcher` makes it (`_flush_tier_launch`, then
     `_flush_tier_collect`): `site_scoring.flush_rows` on `device`, then the
-    summed vector back to the host as numpy totals."""
+    summed vector back to the host in one copy, as numpy totals."""
     from graphtyper_tpu_torch.ops.site_scoring import flush_rows, split_totals, totals_to_numpy
 
-    return totals_to_numpy(split_totals(flush_rows(mat, A, n_sites, n_samples, device), A, n_sites, n_samples))
+    vec = flush_rows(mat, A, n_sites, n_samples, device)
+    return totals_to_numpy(split_totals(vec.cpu(), A, n_sites, n_samples))
 
 
 def _cuda_ms(fn, device: torch.device) -> float:
@@ -127,11 +135,12 @@ def h2d_peak_bytes_per_s(device: torch.device, nbytes: int = 1 << 28) -> float:
 
 
 def bench_shape(rows: int, n_samples: int, device: torch.device, A: int = 2, n_sites: int = 512) -> dict:
+    from graphtyper_tpu_torch import counters
     from graphtyper_tpu_torch.ops.site_scoring import _chunk_rows, flush_rows, obs_matrix
 
     mat = torch.from_numpy(obs_matrix(synth_rows(rows, A, n_sites, n_samples), rows))
     h2d_bytes = mat.numel() * mat.element_size()
-    chunks = -(-rows // _chunk_rows(A))
+    chunks = 1 if device.type == "cuda" else -(-rows // _chunk_rows(A))
     cpu = torch.device("cpu")
 
     host_ms = []
@@ -146,22 +155,30 @@ def bench_shape(rows: int, n_samples: int, device: torch.device, A: int = 2, n_s
     if device.type == "cpu":
         # the device leg is the host leg: no device time to report
         line.update(device_ms_first=None, device_ms_steady=None, device_compute_ms=None,
-                    h2d_ms=None, bound_ms=None, h2d_bound_ms=None, cuda_kernels_per_flush=None, winner=None,
-                    speedup_device_over_host=None)
+                    h2d_ms=None, h2d_pageable_ms=None, bound_ms=None, h2d_bound_ms=None,
+                    cuda_kernels_per_flush=None, launches=None, winner=None, speedup_device_over_host=None)
         return line
 
+    # the production flush: the rows in pinned memory, as ObsBatcher
+    # writes them
+    pinned = mat.pin_memory()
     got = {}
 
     def dev_flush():
-        got.update(flush(mat, A, n_sites, n_samples, device))
+        got.update(flush(pinned, A, n_sites, n_samples, device))
 
     first = _cuda_ms(dev_flush, device)
+    counters.reset()
+    dev_flush()
+    launches = {k: counters.COUNTS[k] for k in ("apply_tier", "segment_counters")}
     steady = statistics.median(_cuda_ms(dev_flush, device) for _ in range(3))
     for k, v in want.items():
         if not np.array_equal(got[k], v):
             raise SystemExit(f"bench_flush: {k} on {device} differs from the CPU at {rows} rows")
 
-    h2d = statistics.median(_cuda_ms(lambda: mat.to(device), device) for _ in range(3))
+    h2d = statistics.median(_cuda_ms(lambda: pinned.to(device, non_blocking=True), device)
+                            for _ in range(3))
+    h2d_pageable = statistics.median(_cuda_ms(lambda: mat.to(device), device) for _ in range(3))
     resident = mat.to(device)
 
     def compute():
@@ -173,9 +190,9 @@ def bench_shape(rows: int, n_samples: int, device: torch.device, A: int = 2, n_s
     out_bytes = 8 * (S * (A * (A + 1) // 2) + S * A + 3 * S + 2 * n_sites + 8 * n_sites * A)
     line.update(
         device_ms_first=first, device_ms_steady=steady, device_compute_ms=compute_ms, h2d_ms=h2d,
-        bound_ms=(h2d_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+        h2d_pageable_ms=h2d_pageable, bound_ms=(h2d_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
         h2d_bound_ms=h2d_bytes / h2d_peak_bytes_per_s(device) * 1e3,
-        cuda_kernels_per_flush=_kernels_in(dev_flush),
+        cuda_kernels_per_flush=_kernels_in(dev_flush), launches=launches,
         winner="device" if steady < host else "host",
         speedup_device_over_host=host / steady,
     )

@@ -1,7 +1,11 @@
-"""The port's torch device ops on the card against the same ops on the CPU
-(which tests/test_torch_site_scoring.py and test_torch_discovery_pileup.py
-hold to the JAX package): scoring `apply_tier` and the pileup's
-`segment_counters`; and the verdict and seed-probe kernels
+"""The port's device ops on the card against the same ops on the CPU
+(which tests/test_torch_site_scoring.py, test_torch_discovery_pileup.py
+and test_torch_scoring_kernels.py hold to the JAX package): the scoring
+kernel (csrc/site_scoring.cu) through `apply_tier`, `apply_tier_sharded`,
+`flush_rows` from pinned and pageable memory and `ObsBatcher`, and the
+pileup kernel (csrc/discovery_pileup.cu) through `segment_counters`, each
+on random rows and on tests/test_torch_scoring_batches.py's adversarial
+rows; and the verdict and seed-probe kernels
 (csrc/device_align.cu, csrc/seed_probe.cu) against their plain PyTorch
 versions on the card, on the synthetic adversarial batches, on the
 arena-edge batch (verdicts) and at nk = 40 (seed probes, two chunks of 32
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from test_torch_discovery_pileup import _rows
+from test_torch_scoring_batches import SCORING_SHAPE, pileup_rows, scoring_rows
 from test_torch_site_scoring import _padded_matrix, _random_cols
 
 pytestmark = pytest.mark.gpu
@@ -47,6 +52,62 @@ def test_segment_counters_cuda_matches_cpu(cuda):
     mat = torch.from_numpy(np.stack([r[k].astype(np.int64) for k in (
         "r_ev", "r_dhq", "r_dlq", "r_bits", "r_mapq", "r_dist")]))
     assert torch.equal(segment_counters(mat.to(cuda), 7000).cpu(), segment_counters(mat, 7000))
+
+
+@pytest.mark.parametrize("A", [2, 4, 8, 16, 32, 64])
+def test_scoring_kernel_matches_plain_on_adversarial_rows(cuda, A):
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.ops.site_scoring import apply_tier, apply_tier_plain
+
+    mat = torch.from_numpy(scoring_rows(A, 3))
+    counters.reset()
+    got = apply_tier(mat.to(cuda), A, *SCORING_SHAPE).cpu()
+    assert dict(counters.COUNTS) == {"apply_tier": 1}
+    assert torch.equal(got, apply_tier_plain(mat, A, *SCORING_SHAPE))
+
+
+def test_scoring_flush_paths_match_the_cpu(cuda):
+    """flush_rows from pinned memory (twice, the second flush larger than
+    the first), from pageable memory, and over a 2-entry mesh of the card,
+    against the CPU flush."""
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.ops.site_scoring import flush_rows
+    from graphtyper_tpu_torch.parallel.mesh import Mesh
+
+    A = 16
+    for seeds in ((0,), (1, 2, 3)):
+        mat = torch.from_numpy(np.concatenate([scoring_rows(A, s) for s in seeds], axis=1))
+        want = flush_rows(mat, A, *SCORING_SHAPE, torch.device("cpu"))
+        counters.reset()
+        assert torch.equal(flush_rows(mat.pin_memory(), A, *SCORING_SHAPE, cuda).cpu(), want)
+        assert torch.equal(flush_rows(mat, A, *SCORING_SHAPE, cuda).cpu(), want)
+        mesh = Mesh([cuda, cuda], ("data",))
+        assert torch.equal(flush_rows(mat, A, *SCORING_SHAPE, cuda, mesh=mesh).cpu(), want)
+        assert counters.COUNTS["apply_tier"] == 4 and not counters.COUNTS["apply_tier_plain"]
+
+
+def test_scoring_kernel_refuses_other_layouts(cuda):
+    from graphtyper_tpu_torch.ops.site_scoring import apply_tier
+
+    mat = torch.from_numpy(scoring_rows(2, 0)).to(cuda)
+    with pytest.raises(TypeError):
+        apply_tier(mat.to(torch.int64), 2, *SCORING_SHAPE)
+    with pytest.raises(ValueError):
+        apply_tier(mat[:, ::2], 2, *SCORING_SHAPE)
+    with pytest.raises(ValueError):
+        apply_tier(mat, 3, *SCORING_SHAPE)
+
+
+@pytest.mark.parametrize("seed,n,n_events", [(0, 5000, 300), (1, 300, 1000), (3, 200_000, 7)])
+def test_pileup_kernel_matches_plain_on_adversarial_rows(cuda, seed, n, n_events):
+    from graphtyper_tpu_torch import counters
+    from graphtyper_tpu_torch.ops.discovery_pileup import segment_counters, segment_counters_plain
+
+    mat = torch.from_numpy(pileup_rows(seed, n, n_events))
+    counters.reset()
+    got = segment_counters(mat.to(cuda), n_events).cpu()
+    assert dict(counters.COUNTS) == {"segment_counters": 1}
+    assert torch.equal(got, segment_counters_plain(mat, n_events))
 
 
 # ---- the verdict and seed-probe kernels against their plain versions ----
