@@ -34,6 +34,10 @@ Phases, one line each, none of them caught:
               region loop of four 50 kb units over 4 region workers), and
               50 kb, 10x, 4 samples, error rate 0.02, whose VCF changes when
               the SW results are discarded, so a wrong kernel result shows
+     capture  the 200 kb cohort's scoring flushes: genotype with the CLI's
+              options at --threads 4, its region units in this process,
+              flush_rows wrapped (tools/bench_scoring.capture_flushes); its
+              launches are not counted as a main path's
      pools    more call pools at once than the prepared-pool cache holds:
               `genotype` on 8 single-sample files at --threads 8 (8 pools in
               8 threads), the SAM paths given positionally after the
@@ -78,10 +82,15 @@ Phases, one line each, none of them caught:
               segment_counters_plain on the card, exactly, on the
               adversarial rows of tests/test_torch_scoring_batches.py at
               every allele tier, at tools/bench_flush's four flush shapes
-              (65,536 to 4,194,304 rows) at A 2 and A 64, and at three
-              pileup shapes; CUDA-event ms of kernel, plain version and the
-              flush matrix's copy from pageable and from pinned memory, and
-              the byte bound. The main paths' launches of both kernels (the
+              (65,536 to 4,194,304 rows) at A 2 and A 64, the largest at A 2
+              also sorted by segment and in one segment, at three pileup
+              shapes, the largest also sorted and in one event, and at every
+              captured flush (their rows histogram and tiers; the kernel's
+              summed and median time); CUDA-event ms of kernel, plain
+              version and the flush matrix's copy from pageable and from
+              pinned memory, the byte bound, each call's device operations
+              (torch.profiler) and its device time (a CUDA graph of
+              back-to-back calls). The main paths' launches of both kernels (the
               slices, pools, align, the subcommands, mesh, dist, indep, fuzz
               and soak) must be above 0, with no plain version on the card
   8. mesh     graphtyper_tpu_torch.entry.dryrun_multichip(4): the whole
@@ -156,7 +165,9 @@ bound; for sw_rot also its times and bounds per shape, the empty launch,
 the align_batch times and the R = 5 / R = 8 times; for device_align and
 seed_probe the times at 2^19 rows and per input, the measured gather
 ceiling and the time it gives the kernel's loads; for apply_tier and
-segment_counters the times at their largest shape and per shape), and the
+segment_counters the times at their largest shape and per shape, the
+device operations and device time a call, and for apply_tier the
+captured main-path flushes), and the
 last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a GPU, and outside a checkout of the repository.
@@ -271,6 +282,7 @@ SCORING_SAMPLES = 50
 # (rows, events) of the pileup: a 200 kb region's first pass (7,530-19,188
 # rows in the dist phase's runs), then cohort sizes
 PILEUP_SHAPES = ((20_000, 2_500), (1_048_576, 131_072), (4_194_304, 524_288))
+CAPTURED_REPS = 100  # calls timed at each captured main-path flush
 # CRAM cohorts of utils/simulate_indep.py (a Markov reference with
 # indel-rich clustered sites, adapter soft clips and ramped quals, one
 # sample): bench.py's independent workload (bench.py:181-191), 120 kb at 30x,
@@ -1132,19 +1144,27 @@ def gather_phase(dev, verdict, seed):
     return rates
 
 
-def scoring_phase(torch, np, dev):
+def scoring_phase(torch, np, dev, captured):
     """csrc/site_scoring.cu (apply_tier) against apply_tier_plain and
     csrc/discovery_pileup.cu (segment_counters) against
     segment_counters_plain on the card, exactly: on the adversarial rows of
     tests/test_torch_scoring_batches.py at every allele tier, at
     tools/bench_flush's four flush shapes at A 2 (512 sites) and A 64 (64
-    sites) with 50 samples, and at PILEUP_SHAPES. CUDA-event ms of kernel
-    and plain version, the flush matrix's copy from pageable memory and
-    from pinned memory (as ObsBatcher writes it), and the byte bound: the rows read once
-    and the output written once over 3.35 TB/s."""
+    sites) with 50 samples, the largest at A 2 also sorted by (site,
+    sample) and with every row in one segment, at PILEUP_SHAPES, the
+    largest also sorted and in one event, and at every scoring flush of the
+    200 kb cohort (`captured`, tools/bench_scoring.capture_flushes).
+    CUDA-event ms of kernel and plain version, the flush matrix's copy from
+    pageable memory and from pinned memory (as ObsBatcher writes it), the
+    byte bound (the rows read once and the output written once over 3.35
+    TB/s), and each kernel's device operations in one call
+    (torch.profiler) and its device time a call (a CUDA graph of
+    back-to-back calls, bench_scoring.graph_us)."""
     from graphtyper_tpu_torch.ops.discovery_pileup import segment_counters, segment_counters_plain
     from graphtyper_tpu_torch.ops.site_scoring import ALLELE_TIERS, apply_tier, apply_tier_plain
-    from test_torch_scoring_batches import SCORING_SHAPE, flush_matrix, pileup_rows, scoring_rows
+    from graphtyper_tpu_torch.tools.bench_scoring import device_ops, graph_us, rows_histogram
+    from test_torch_scoring_batches import (SCORING_SHAPE, flush_matrix, pileup_order, pileup_rows, scoring_order,
+                                            scoring_rows)
 
     for A in ALLELE_TIERS:
         mat = torch.from_numpy(scoring_rows(A, 7)).to(dev)
@@ -1155,41 +1175,88 @@ def scoring_phase(torch, np, dev):
         _exact(np, f"segment_counters on the adversarial rows ({n} rows, {n_events} events)",
                segment_counters(mat, n_events), segment_counters_plain(mat, n_events))
     flush = {}
+
+    def time_flush(name, host, A, n_sites):
+        pinned = host.pin_memory()
+        mat = pinned.to(dev, non_blocking=True)
+        args = (A, n_sites, SCORING_SAMPLES)
+        got = apply_tier(mat, *args)
+        err = _exact(np, f"apply_tier at {name}", got, apply_tier_plain(mat, *args))
+        nbytes = host.numel() * host.element_size() + got.numel() * got.element_size()
+        flush[name] = dict(
+            rows=host.shape[1], A=A, sites=n_sites, max_abs_err=err, ms=_time_ms(lambda: apply_tier(mat, *args)),
+            plain_ms=_time_ms(lambda: apply_tier_plain(mat, *args), 2),
+            pageable_copy_ms=_time_ms(lambda: host.to(dev), 3),
+            pinned_copy_ms=_time_ms(lambda: pinned.to(dev, non_blocking=True), 3),
+            bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), device_ops=device_ops(lambda: apply_tier(mat, *args))[0],
+            device_us=graph_us(lambda: apply_tier(mat, *args)))
+
     for A, n_sites in SCORING_TIERS:
         for rows in SCORING_ROWS:
-            host = torch.from_numpy(flush_matrix(rows, A, n_sites, SCORING_SAMPLES, seed=rows))
-            pinned = host.pin_memory()
-            mat = pinned.to(dev, non_blocking=True)
-            args = (A, n_sites, SCORING_SAMPLES)
-            got = apply_tier(mat, *args)
-            err = _exact(np, f"apply_tier at A {A}, {rows} rows", got, apply_tier_plain(mat, *args))
-            nbytes = host.numel() * host.element_size() + got.numel() * got.element_size()
-            flush[f"A{A}_{rows}"] = dict(
-                rows=rows, A=A, sites=n_sites, max_abs_err=err, ms=_time_ms(lambda: apply_tier(mat, *args)),
-                plain_ms=_time_ms(lambda: apply_tier_plain(mat, *args), 2),
-                pageable_copy_ms=_time_ms(lambda: host.to(dev), 3),
-                pinned_copy_ms=_time_ms(lambda: pinned.to(dev, non_blocking=True), 3),
-                bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+            time_flush(f"A{A}_{rows}", torch.from_numpy(flush_matrix(rows, A, n_sites, SCORING_SAMPLES, seed=rows)),
+                       A, n_sites)
+    A, n_sites = SCORING_TIERS[0]
+    big = flush_matrix(SCORING_ROWS[-1], A, n_sites, SCORING_SAMPLES, seed=SCORING_ROWS[-1])
+    for order in ("sorted", "one_segment"):
+        time_flush(f"A{A}_{SCORING_ROWS[-1]}_{order}",
+                   torch.from_numpy(scoring_order(big, order, (n_sites, SCORING_SAMPLES))), A, n_sites)
+
+    main_ms, main_us, main_err = [], [], 0
+    for i, (host, A, n_sites, n_samples) in enumerate(captured):
+        mat = host.to(dev)
+        args = (A, n_sites, n_samples)
+        main_err = max(main_err, _exact(np, f"apply_tier at captured flush {i} ({host.shape[1]} rows, A {A})",
+                                        apply_tier(mat, *args), apply_tier_plain(mat, *args)))
+        main_ms.append(_time_ms(lambda: apply_tier(mat, *args), CAPTURED_REPS))
+        main_us.append(graph_us(lambda: apply_tier(mat, *args)))
+    main = dict(rows_histogram(captured), max_abs_err=main_err, sum_ms=sum(main_ms),
+                median_ms=float(np.median(main_ms)), max_ms=max(main_ms), sum_device_us=sum(main_us),
+                median_device_us=float(np.median(main_us)))
+
     pileup = {}
-    for rows, n_events in PILEUP_SHAPES:
-        mat = torch.from_numpy(pileup_rows(rows, rows, n_events, n_overflow=0)).to(dev)
-        err = _exact(np, f"segment_counters at {rows} rows", segment_counters(mat, n_events),
+
+    def time_pileup(name, mat, n_events):
+        err = _exact(np, f"segment_counters at {name}", segment_counters(mat, n_events),
                      segment_counters_plain(mat, n_events))
-        pileup[f"{rows}_rows"] = dict(
-            rows=rows, events=n_events, max_abs_err=err, ms=_time_ms(lambda: segment_counters(mat, n_events)),
+        pileup[name] = dict(
+            rows=mat.shape[1], events=n_events, max_abs_err=err, ms=_time_ms(lambda: segment_counters(mat, n_events)),
             plain_ms=_time_ms(lambda: segment_counters_plain(mat, n_events), 3),
-            bound=((48 * rows + 64 * n_events) / HBM_BYTES_PER_S * 1e3, "bytes"))
+            bound=((48 * mat.shape[1] + 64 * n_events) / HBM_BYTES_PER_S * 1e3, "bytes"),
+            device_ops=device_ops(lambda: segment_counters(mat, n_events))[0],
+            device_us=graph_us(lambda: segment_counters(mat, n_events)))
+
+    for rows, n_events in PILEUP_SHAPES:
+        time_pileup(f"{rows}_rows", torch.from_numpy(pileup_rows(rows, rows, n_events, n_overflow=0)).to(dev),
+                    n_events)
+    rows, n_events = PILEUP_SHAPES[-1]
+    big = pileup_rows(rows, rows, n_events, n_overflow=0)
+    for order in ("sorted", "one_event"):
+        time_pileup(f"{rows}_rows_{order}", torch.from_numpy(pileup_order(big, order, n_events)).to(dev), n_events)
+
+    def ops(v):
+        count = "not measured (the profiler recorded none)" if v["device_ops"] is None else f"{v['device_ops']:g}"
+        return f"{count} ops, {v['device_us']:.1f} us"
+
     print("scoring: apply_tier (csrc/site_scoring.cu) == apply_tier_plain and segment_counters"
           " (csrc/discovery_pileup.cu) == segment_counters_plain, max |diff| 0, on the adversarial rows at"
           f" A {', '.join(map(str, ALLELE_TIERS))} and at every shape below; CUDA-event ms, {SCORING_SAMPLES}"
-          " samples: " + "; ".join(
+          " samples; device operations a call (torch.profiler) and device us a call (a CUDA graph): " + "; ".join(
               f"{k} ({v['sites']} sites): kernel {v['ms']:.4f}, plain {v['plain_ms']:.3f}, bound"
               f" {v['bound'][0]:.4f} ({v['bound'][1]}), copy pageable {v['pageable_copy_ms']:.3f} / pinned"
-              f" {v['pinned_copy_ms']:.3f}" for k, v in flush.items()), flush=True)
-    print("pileup: CUDA-event ms: " + "; ".join(
+              f" {v['pinned_copy_ms']:.3f}, {ops(v)}"
+              for k, v in flush.items()), flush=True)
+    print(f"scoring, main path: the {main['flushes']} flushes of the 200kb cohort (the CLI's options at --threads"
+          f" {THREADS}, its units in this process):"
+          f" {main['rows']} rows, median {main['median_rows']:.0f} a flush, rows histogram"
+          f" {json.dumps(main['rows_histogram'])}, tiers {json.dumps(main['tiers'])}; each == apply_tier_plain;"
+          f" kernel CUDA-event ms summed {main['sum_ms']:.4f}, median {main['median_ms']:.4f},"
+          f" max {main['max_ms']:.4f}; device us a call summed {main['sum_device_us']:.1f}, median"
+          f" {main['median_device_us']:.2f}", flush=True)
+    print("pileup: CUDA-event ms; device operations a call and device us a call: " + "; ".join(
         f"{k}, {v['events']} events: kernel {v['ms']:.4f}, plain {v['plain_ms']:.3f}, bound"
-        f" {v['bound'][0]:.4f} ({v['bound'][1]})" for k, v in pileup.items()), flush=True)
-    return dict(apply_tier=flush, segment_counters=pileup)
+        f" {v['bound'][0]:.4f} ({v['bound'][1]}), {ops(v)}"
+        for k, v in pileup.items()), flush=True)
+    return dict(apply_tier=flush, segment_counters=pileup, main_path=main)
 
 
 def forward_inputs(np, name, R, L, H, A):
@@ -1728,6 +1795,7 @@ def main() -> int:
 
     from graphtyper_tpu_torch import kernels
     from graphtyper_tpu_torch.io.native import engine_path
+    from graphtyper_tpu_torch.tools.bench_scoring import capture_flushes
 
     t0 = time.perf_counter()
     lib = kernels.library_path()
@@ -1775,6 +1843,9 @@ def main() -> int:
             rot_launches += seen["sw_rot"]
             count(seen)
             lap(f"slice {name}")
+        # the 200kb slice's scoring flushes, for the scoring phase; its launches are not counted
+        captured = capture_flushes(*sims["200kb"], os.path.join(work, "capture"), threads=THREADS)
+        lap("capture")
         pools = pools_phase(work)
         lap("pools")
         align = align_phase(torch, np, work, dev)
@@ -1824,7 +1895,7 @@ def main() -> int:
     seed = seed_phase(torch, np, dev, inputs, sm_clock, n_sm)
     gather = gather_phase(dev, verdict, seed)
     lap("verdict, seed, gather")
-    scoring = scoring_phase(torch, np, dev)
+    scoring = scoring_phase(torch, np, dev, captured)
     lap("scoring")
     forward_phase(torch, np, dev, sm_clock, n_sm)
     lap("forward")
@@ -1853,13 +1924,15 @@ def main() -> int:
 
     def scoring_entry(name, source, replaces, top):
         """A kernels-line entry timed at the shape `top`, with every shape's
-        times and bound under `shapes`."""
+        times, bound, device operations and device time under `shapes`."""
         times = scoring[name]
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=scored[name],
                     max_abs_err=max(v["max_abs_err"] for v in times.values()), ms=times[top]["ms"],
                     plain_ms=times[top]["plain_ms"], bound_ms=times[top]["bound"][0],
-                    bound_by=times[top]["bound"][1], library_ms=None,
+                    bound_by=times[top]["bound"][1], library_ms=None, device_ops=times[top]["device_ops"],
+                    device_us=times[top]["device_us"],
                     shapes=[dict(shape=k, ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                                 device_ops=v["device_ops"], device_us=v["device_us"],
                                  **{c: v[c] for c in ("pageable_copy_ms", "pinned_copy_ms") if c in v})
                             for k, v in times.items()])
 
@@ -1885,8 +1958,9 @@ def main() -> int:
                      "graphtyper_tpu/ops/device_align.py:107", verdict),
         gather_entry("seed_probe", "graphtyper_tpu_torch/csrc/seed_probe.cu",
                      "graphtyper_tpu/ops/seed_probe.py:92", seed),
-        scoring_entry("apply_tier", "graphtyper_tpu_torch/csrc/site_scoring.cu",
-                      "graphtyper_tpu/ops/site_scoring.py:141", f"A2_{SCORING_ROWS[-1]}"),
+        dict(scoring_entry("apply_tier", "graphtyper_tpu_torch/csrc/site_scoring.cu",
+                           "graphtyper_tpu/ops/site_scoring.py:141", f"A2_{SCORING_ROWS[-1]}"),
+             main_path_flushes=scoring["main_path"]),
         scoring_entry("segment_counters", "graphtyper_tpu_torch/csrc/discovery_pileup.cu",
                       "graphtyper_tpu/ops/discovery_pileup.py:85", f"{PILEUP_SHAPES[-1][0]}_rows"),
     ]}))

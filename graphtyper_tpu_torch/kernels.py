@@ -8,7 +8,9 @@ that finds it already built, such as a region worker after its parent
 built it before the fan-out, loads it without compiling.
 
 `check_cuda` is the layout check every kernel wrapper makes before its
-launch. `build_shared` also builds the host libraries of the port (host.py, the
+launch; `device_guard` and `stream_of` are the scoring wrappers' cheap
+forms of `torch.cuda.device` and `torch.cuda.current_stream`.
+`build_shared` also builds the host libraries of the port (host.py, the
 C++ engine of io/native.py).
 """
 
@@ -55,6 +57,25 @@ def check_cuda(name: str, dev, tensors) -> None:
             raise ValueError(f"{name}: {arg} must have {ndim} dims, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def device_guard(dev):
+    """`torch.cuda.device(dev)`, or no context when `dev` is the current
+    device already, as it is on every flush of a one-card run: entering
+    the guard costs microseconds a call, which the scoring flushes of the
+    main path (a few thousand rows each) notice."""
+    import torch
+
+    return contextlib.nullcontext() if torch.cuda.current_device() == dev.index else torch.cuda.device(dev)
+
+
+def stream_of(dev) -> int:
+    """The current CUDA stream of `dev` (an indexed device) as the pointer
+    the launchers take: what `torch.cuda.current_stream(dev).cuda_stream`
+    gives, from torch's raw getter, without building a Stream object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def find_nvcc() -> str:
@@ -171,8 +192,12 @@ def load(build_dir: Path | None = None) -> ctypes.CDLL:
     i64 = ctypes.c_int64
     lib.gt_site_scoring_size.restype = i64
     lib.gt_site_scoring_size.argtypes = [i32, i64, i64]
+    lib.gt_site_scoring_buffer.restype = i64
+    lib.gt_site_scoring_buffer.argtypes = [i32, i64, i64]
+    lib.gt_site_scoring_shared.restype = i64
+    lib.gt_site_scoring_shared.argtypes = [i64, i32, i64, i64]
     lib.gt_site_scoring.restype = i32
-    lib.gt_site_scoring.argtypes = [vp, i64, i32, i64, i64, vp, vp, vp]
+    lib.gt_site_scoring.argtypes = [vp, i64, i32, i64, i64, vp, vp]
     lib.gt_discovery_pileup.restype = i32
     lib.gt_discovery_pileup.argtypes = [vp, i64, i64, vp, vp]
     _LIB = lib

@@ -71,7 +71,9 @@ def segment_counters(mat: torch.Tensor, n_events: int) -> torch.Tensor:
     dlq, bits, mapq, dist), on the matrix's device. Rows with ev ==
     n_events (the overflow segment padding uses) are dropped. A CPU tensor
     runs `segment_counters_plain`; a CUDA tensor (int64, contiguous) goes
-    to csrc/discovery_pileup.cu, built at first use, or the call raises."""
+    to csrc/discovery_pileup.cu, built at first use (a `torch.empty` output
+    that the launcher zeroes with one memset, then one launch), or the call
+    raises."""
     if mat.device.type == "cpu":
         return segment_counters_plain(mat, n_events)
     dev = mat.device
@@ -79,10 +81,10 @@ def segment_counters(mat: torch.Tensor, n_events: int) -> torch.Tensor:
     kernels.check_cuda("segment_counters", dev, (("mat", mat, torch.int64, 2),))
     if mat.shape[0] != 6:
         raise ValueError(f"segment_counters: mat must have 6 rows, got {tuple(mat.shape)}")
-    with torch.cuda.device(dev):
-        out = torch.zeros((n_events, 8), dtype=torch.int64, device=dev)
+    with kernels.device_guard(dev):
+        out = torch.empty((n_events, 8), dtype=torch.int64, device=dev)
         rc = lib.gt_discovery_pileup(mat.data_ptr(), mat.shape[1], n_events, out.data_ptr(),
-                                     torch.cuda.current_stream(dev).cuda_stream)
+                                     kernels.stream_of(dev))
     if rc != 0:
         raise RuntimeError(f"discovery_pileup kernel launch failed: cudaGetLastError() = {rc}")
     counters.add("segment_counters")

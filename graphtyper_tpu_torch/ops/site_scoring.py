@@ -3,10 +3,11 @@
 Port of graphtyper_tpu/ops/site_scoring.py: `apply_tier` is the
 counterpart of the jitted `_apply_tier_impl` (:141-234) and returns the
 same flat vector in the same order (:221-234). On a CUDA tensor it launches
-the hand-written kernel csrc/site_scoring.cu (two launches a flush, built
-at first use) or raises; on a CPU tensor it runs `apply_tier_plain`, the
-torch-op version (integer segment sums with `index_add_` and a Gram
-product, in chunks of `_chunk_rows(A)` rows that bound the [N, T] term).
+the hand-written kernel csrc/site_scoring.cu (a memset and one launch a
+flush at A 2 and 4, a second launch above; built at first use) or raises;
+on a CPU tensor it runs `apply_tier_plain`, the torch-op version (integer
+segment sums with `index_add_` and a Gram product, in chunks of
+`_chunk_rows(A)` rows that bound the [N, T] term).
 `ObsBatcher` (:498) applies every tier on its device, whatever the row
 count (no host threshold), and writes each flush's rows for a CUDA device
 into pinned host memory, copied without blocking the host on the current
@@ -162,8 +163,11 @@ def apply_tier(obs_mat: torch.Tensor, A: int, n_sites: int, n_samples: int) -> t
     (eps 0, bits 0, cov COV_PAD, zero scalars) add nothing. Port of
     graphtyper_tpu/ops/site_scoring.py:141 _apply_tier_impl. A CPU tensor
     runs `apply_tier_plain`; a CUDA tensor goes to csrc/site_scoring.cu,
-    built at first use, all N rows in one launch of each of its two
-    passes, or the call raises."""
+    built at first use: one `torch.empty` buffer (the vector, then the
+    kernel's scratch above A 4), zeroed by the launcher's one memset, and
+    all N rows in one launch of pass 1 (and of pass 2 above A 4), or the
+    call raises. Above A 4 the vector is a view of the buffer's first
+    entries."""
     if obs_mat.device.type == "cpu":
         return apply_tier_plain(obs_mat, A, n_sites, n_samples)
     dev = obs_mat.device
@@ -173,15 +177,15 @@ def apply_tier(obs_mat: torch.Tensor, A: int, n_sites: int, n_samples: int) -> t
         raise ValueError(f"apply_tier: obs_mat must have {len(OBS_FIELDS)} rows, got {tuple(obs_mat.shape)}")
     if A not in ALLELE_TIERS:
         raise ValueError(f"apply_tier: A must be one of {ALLELE_TIERS}, got {A}")
-    with torch.cuda.device(dev):
-        out = torch.zeros(lib.gt_site_scoring_size(A, n_sites, n_samples), dtype=torch.int64, device=dev)
-        u = torch.zeros(n_sites * n_samples * A, dtype=torch.int64, device=dev)
-        rc = lib.gt_site_scoring(obs_mat.data_ptr(), obs_mat.shape[1], A, n_sites, n_samples,
-                                 out.data_ptr(), u.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    n_out, n_buf = lib.gt_site_scoring_size(A, n_sites, n_samples), lib.gt_site_scoring_buffer(A, n_sites, n_samples)
+    with kernels.device_guard(dev):
+        buf = torch.empty(n_buf, dtype=torch.int64, device=dev)
+        rc = lib.gt_site_scoring(obs_mat.data_ptr(), obs_mat.shape[1], A, n_sites, n_samples, buf.data_ptr(),
+                                 kernels.stream_of(dev))
     if rc != 0:
         raise RuntimeError(f"site_scoring kernel launch failed: cudaGetLastError() = {rc}")
     counters.add("apply_tier")
-    return out
+    return buf if n_buf == n_out else buf[:n_out]
 
 
 def apply_tier_plain(obs_mat: torch.Tensor, A: int, n_sites: int, n_samples: int) -> torch.Tensor:

@@ -7,8 +7,9 @@ A scoring flush ships one tier's observation rows as a [14, rows] int32
 matrix in one copy, applies them with `apply_tier` and copies the summed
 state vector back (`ObsBatcher._flush_tier_launch`, `_flush_tier_collect`).
 On a CUDA device the matrix lies in pinned memory, as `ObsBatcher` writes
-it, and is copied without blocking the host; `apply_tier` is csrc/site_scoring.cu, all rows in one launch of each of its
-two passes; on the CPU device it is `apply_tier_plain`, in chunks of
+it, and is copied without blocking the host; `apply_tier` is
+csrc/site_scoring.cu, a memset and all rows in one launch (and a second
+pass above A 4); on the CPU device it is `apply_tier_plain`, in chunks of
 `_chunk_rows(A)` rows. This tool times that flush at the JAX tool's
 cohort-scale shapes (65,536 to 4,194,304 rows, A = 2, 512 sites, --samples
 samples) from the JAX tool's synthetic rows (`synth_rows`, the same numpy

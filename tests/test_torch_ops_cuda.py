@@ -9,8 +9,18 @@ rows; and the verdict and seed-probe kernels
 (csrc/device_align.cu, csrc/seed_probe.cu) against their plain PyTorch
 versions on the card, on the synthetic adversarial batches, on the
 arena-edge batch (verdicts) and at nk = 40 (seed probes, two chunks of 32
-kmers), and on the engine's rows of a small cohort. Integer outputs,
-tolerance 0. Skips
+kmers), and on the engine's rows of a small cohort. Since the scoring
+kernels' pre-reduction in the warp and in shared memory, both are also
+held to their plain versions on four row orders (random, sorted, reversed,
+one segment or event), the scoring kernel with its site-level block in
+shared memory and in global memory at A 2 and A 64, the shared copy also
+past 48 KB and in two host threads at once with copies of two sizes, a
+flush run one row a lane with and without the warp's sums, and each call
+is counted in device operations (torch.profiler: at most 3 an
+`apply_tier`, 2 a `segment_counters`, no fill kernel).
+The shared copy is the whole site-level block where it fits, else its
+first entries, the rest taking global atomics.
+Integer outputs, tolerance 0. Skips
 without a GPU; run on the card with
   python -m pytest tests/test_torch_ops_cuda.py -q
 """
@@ -20,7 +30,8 @@ import pytest
 import torch
 
 from test_torch_discovery_pileup import _rows
-from test_torch_scoring_batches import SCORING_SHAPE, pileup_rows, scoring_rows
+from test_torch_scoring_batches import (ORDERS, SCORING_SHAPE, flush_matrix, pileup_order, pileup_rows, scoring_order,
+                                        scoring_rows)
 from test_torch_site_scoring import _padded_matrix, _random_cols
 
 pytestmark = pytest.mark.gpu
@@ -108,6 +119,134 @@ def test_pileup_kernel_matches_plain_on_adversarial_rows(cuda, seed, n, n_events
     got = segment_counters(mat.to(cuda), n_events).cpu()
     assert dict(counters.COUNTS) == {"segment_counters": 1}
     assert torch.equal(got, segment_counters_plain(mat, n_events))
+
+
+# (A, sites, whether the whole site-level block, sites x (2 + 8A) int64,
+# fits the card's 227 KB of shared memory a block; else a block keeps its
+# first entries)
+SITE_BLOCK_CASES = [(2, 7, True), (2, 2000, False), (64, 7, True), (64, 64, False)]
+PERSISTENT_ROWS = 400_000  # past the rows that one row a lane runs at once on the H100 (~135,000)
+
+
+@pytest.mark.parametrize("A,n_sites,whole", SITE_BLOCK_CASES)
+@pytest.mark.parametrize("order", ORDERS)
+def test_scoring_kernel_row_orders_and_site_block_variants(cuda, order, A, n_sites, whole):
+    """The persistent grid with its shared copy of the site-level block
+    (whole or its first entries), against the plain version on the card."""
+    from graphtyper_tpu_torch import kernels
+    from graphtyper_tpu_torch.ops.site_scoring import apply_tier, apply_tier_plain
+
+    shape = (n_sites, 3)
+    mat = scoring_order(scoring_rows(A, 11, n_random=PERSISTENT_ROWS, n_sites=n_sites, n_samples=3), order, shape)
+    entries, shared = n_sites * (2 + 8 * A), kernels.load().gt_site_scoring_shared(mat.shape[1], A, *shape)
+    assert shared == entries if whole else 0 < shared < entries
+    assert kernels.load().gt_site_scoring_shared(5000, A, *shape) == 0  # one row a lane, no copy
+    mat = torch.from_numpy(mat).to(cuda)
+    assert torch.equal(apply_tier(mat, A, *shape), apply_tier_plain(mat, A, *shape))
+
+
+@pytest.mark.parametrize("A", [2, 4, 64])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("n_sites,grouped", [(400, False), (7, True)])
+def test_scoring_kernel_one_row_a_lane_with_and_without_warp_sums(cuda, n_sites, grouped, order, A):
+    """A flush of 5,370 rows runs one row a lane without a shared copy:
+    over 400 sites (13 rows a site) each row makes its own atomics, over 7
+    sites (767 a site) the warp sums them first; both against the plain
+    version on the card, on the four orders."""
+    from graphtyper_tpu_torch import kernels
+    from graphtyper_tpu_torch.ops.site_scoring import apply_tier, apply_tier_plain
+
+    shape = (n_sites, 3)
+    mat = scoring_order(scoring_rows(A, 12, n_random=5000, n_sites=n_sites, n_samples=3), order, shape)
+    assert (mat.shape[1] >= 256 * n_sites) == grouped
+    assert kernels.load().gt_site_scoring_shared(mat.shape[1], A, *shape) == 0
+    mat = torch.from_numpy(mat).to(cuda)
+    assert torch.equal(apply_tier(mat, A, *shape), apply_tier_plain(mat, A, *shape))
+
+
+def test_scoring_kernel_shared_copy_past_48_kb(cuda):
+    """A 2 x 512 sites: a 73,728-byte copy a block, which the launch must
+    ask for (cudaFuncAttributeMaxDynamicSharedMemorySize)."""
+    from graphtyper_tpu_torch import kernels
+    from graphtyper_tpu_torch.ops.site_scoring import apply_tier, apply_tier_plain
+
+    A, shape = 2, (512, 50)
+    for n in (1_048_576, 1_048_577):  # the last warp full, and with one row
+        assert kernels.load().gt_site_scoring_shared(n, A, *shape) == 512 * (2 + 8 * A) > 48 * 1024 // 8
+        mat = torch.from_numpy(flush_matrix(n, A, *shape, seed=n)).to(cuda)
+        assert torch.equal(apply_tier(mat, A, *shape), apply_tier_plain(mat, A, *shape))
+
+
+def test_scoring_kernel_shared_copies_in_two_threads_at_once(cuda):
+    """Two host threads at once, each making persistent flushes at A 2 with
+    a shared copy of its own size past 48 KB (512 sites: 73,728 bytes;
+    1,500 sites: 216,000 bytes), 8 each: every launch succeeds and every
+    output equals the plain version's. The kernel's shared-memory attribute
+    is one setting that the launches of both threads share, as the pool
+    threads' flushes share it."""
+    import threading
+
+    from graphtyper_tpu_torch import kernels
+    from graphtyper_tpu_torch.ops.site_scoring import apply_tier, apply_tier_plain
+
+    A, shapes = 2, [(512, 50), (1500, 20)]
+    mats, wants = [], []
+    for n_sites, n_samples in shapes:
+        assert kernels.load().gt_site_scoring_shared(PERSISTENT_ROWS, A, n_sites, n_samples) == n_sites * (2 + 8 * A)
+        mat = torch.from_numpy(flush_matrix(PERSISTENT_ROWS, A, n_sites, n_samples, seed=n_sites)).to(cuda)
+        mats.append(mat)
+        wants.append(apply_tier_plain(mat, A, n_sites, n_samples))
+    errors, start = [], threading.Barrier(len(shapes))
+
+    def flushes(i):
+        try:
+            start.wait()
+            for _ in range(8):
+                if not torch.equal(apply_tier(mats[i], A, *shapes[i]), wants[i]):
+                    errors.append(f"{shapes[i]}: the output differs")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{shapes[i]}: {e!r}")
+
+    threads = [threading.Thread(target=flushes, args=(i,)) for i in range(len(shapes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+
+
+@pytest.mark.parametrize("n", [100_000, 1_000_001])
+@pytest.mark.parametrize("order", ["random", "sorted", "reversed", "one_event"])
+def test_pileup_kernel_row_orders(cuda, order, n):
+    from graphtyper_tpu_torch.ops.discovery_pileup import segment_counters, segment_counters_plain
+
+    n_events = 3000
+    mat = torch.from_numpy(pileup_order(pileup_rows(21, n - 64, n_events), order, n_events))
+    assert mat.shape[1] == n
+    assert torch.equal(segment_counters(mat.to(cuda), n_events).cpu(), segment_counters_plain(mat, n_events))
+
+
+@pytest.mark.parametrize("A,ops", [(2, 2), (4, 2), (64, 3)])
+def test_scoring_kernel_device_operations(cuda, A, ops):
+    """A memset and pass 1, and pass 2 above A 4; no fill kernel."""
+    from graphtyper_tpu_torch.ops.site_scoring import apply_tier
+
+    from graphtyper_tpu_torch.tools.bench_scoring import device_ops
+
+    mat = torch.from_numpy(flush_matrix(4096, A, 64, 8)).to(cuda)
+    n, _, names = device_ops(lambda: apply_tier(mat, A, 64, 8))
+    assert n == ops and not any("fill" in name.lower() for name in names), names
+
+
+def test_pileup_kernel_device_operations(cuda):
+    from graphtyper_tpu_torch.ops.discovery_pileup import segment_counters
+
+    from graphtyper_tpu_torch.tools.bench_scoring import device_ops
+
+    mat = torch.from_numpy(pileup_rows(5, 20_000, 2_500)).to(cuda)
+    n, _, names = device_ops(lambda: segment_counters(mat, 2_500))
+    assert n == 2 and not any("fill" in name.lower() for name in names), names
 
 
 # ---- the verdict and seed-probe kernels against their plain versions ----

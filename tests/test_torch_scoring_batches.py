@@ -14,7 +14,10 @@ row matrix (ev, dhq, dlq, bits, mapq, dist) with empty events, negative
 values and overflow rows (ev == n_events). `flush_matrix(n, A, n_sites,
 n_samples)` is a cohort flush's [14, n] matrix with tools/bench_flush.py's
 row distributions (one explained allele a read, 6 % multi-allele reads,
-eps 4-8), the explain bit in the word of its allele at any A."""
+eps 4-8), the explain bit in the word of its allele at any A.
+`scoring_order` and `pileup_order` put a batch's rows in the orders the
+kernels' warp pre-reduction sees differently: as made (random), sorted by
+segment or event (runs), reversed, and all in one segment or event."""
 
 import numpy as np
 
@@ -107,6 +110,39 @@ def pileup_rows(seed: int, n: int, n_events: int, n_overflow: int = 64) -> np.nd
     return np.ascontiguousarray(mat[:, rng.permutation(mat.shape[1])])
 
 
+ORDERS = ("random", "sorted", "reversed", "one_segment")
+
+
+def scoring_order(mat, order, shape=SCORING_SHAPE):
+    """The rows of `mat` in `order`: "random" (as made), "sorted" by (site,
+    sample), "reversed", or "one_segment" (every row moved to the last site
+    and sample)."""
+    if order == "random":
+        return mat
+    if order == "sorted":
+        mat = mat[:, np.lexsort((mat[F["sample"]], mat[F["site"]]))]
+    elif order == "reversed":
+        mat = mat[:, ::-1]
+    else:
+        mat = mat.copy()
+        mat[F["site"]], mat[F["sample"]] = shape[0] - 1, shape[1] - 1
+    return np.ascontiguousarray(mat)
+
+
+def pileup_order(mat, order, n_events):
+    """The rows of `mat` in `order`: "random" (as made), "sorted" by ev,
+    "reversed", or "one_event" (every row, the overflow rows too, moved to
+    event n_events // 2)."""
+    if order == "sorted":
+        return np.ascontiguousarray(mat[:, np.argsort(mat[0], kind="stable")])
+    if order == "reversed":
+        return np.ascontiguousarray(mat[:, ::-1])
+    if order == "one_event":
+        mat = mat.copy()
+        mat[0] = n_events // 2
+    return mat
+
+
 def test_scoring_rows_hold_their_cases():
     for A in (2, 64):
         m = scoring_rows(A, 0).astype(np.int64)
@@ -135,3 +171,20 @@ def test_pileup_rows_hold_their_cases():
     m = pileup_rows(0, 5000, 300)
     assert (m[0] == 300).sum() == 64 and not np.isin(np.arange(0, 300, 7), m[0]).any()
     assert (m[4] < 0).any() and (m[5] < 0).any()
+
+
+def test_orders_keep_the_rows():
+    m = scoring_rows(4, 0)
+    for order in ORDERS:
+        o = scoring_order(m, order)
+        assert o.shape == m.shape
+        real = o[:, o[F["cov"]] != COV_PAD]
+        assert real.shape[1] == (m[F["cov"]] != COV_PAD).sum()
+    s = scoring_order(m, "sorted")
+    key = s[F["site"]].astype(np.int64) * 100 + s[F["sample"]]
+    assert (np.diff(key[s[F["cov"]] != COV_PAD]) >= 0).all()
+    one = scoring_order(m, "one_segment")
+    assert len(set(one[F["site"]].tolist())) == 1 and len(set(one[F["sample"]].tolist())) == 1
+    p = pileup_rows(0, 500, 40)
+    assert (np.diff(pileup_order(p, "sorted", 40)[0]) >= 0).all()
+    assert set(pileup_order(p, "one_event", 40)[0].tolist()) == {20}
