@@ -201,15 +201,14 @@ class PendingVerdicts:
         self._launch_s = launch_s
 
     def wait(self) -> np.ndarray:
-        """int32 [n_rows, OUT_COLS] on the host. The counters take the rows
-        and the host time spent in the launch and here."""
+        """int32 [n_rows, OUT_COLS] on the host. The counters take the rows;
+        ALIGN_STATS the rows and the host time spent in the launch and here."""
         t0 = time.perf_counter()
         if self._event is not None:
             self._event.synchronize()
         # a batch without rows still hands the engine a non-null pointer
         out = self._host[: self.n_rows].numpy() if self.n_rows else np.zeros((0, OUT_COLS), np.int32)
         wall = self._launch_s + time.perf_counter() - t0
-        counters.add("device_align_wall_s", wall)
         counters.add("device_align_rows", self.n_rows)
         with _ALIGN_LOCK:
             ALIGN_STATS["align_rows"] += self.n_rows

@@ -123,14 +123,16 @@ def aggregate_rows(
 ) -> np.ndarray:
     """The [n_events, 11] int64 counter matrix the gates consume (the
     gt_fp_gates layout), counters 0-7 computed on `device`. Port of
-    graphtyper_tpu/ops/discovery_pileup.py:117."""
+    graphtyper_tpu/ops/discovery_pileup.py:117. The call is span
+    `discovery.pileup` (n: the rows), up to its collect."""
     n = len(r_ev)
-    out = np.zeros((n_events, N_COUNTERS), dtype=np.int64)
-    if n == 0:
-        out[:, 8:11] = -1
+    with counters.span("discovery.pileup", n=n):
+        out = np.zeros((n_events, N_COUNTERS), dtype=np.int64)
+        if n == 0:
+            out[:, 8:11] = -1
+            return out
+        mat = np.stack([np.asarray(a, dtype=np.int64) for a in (r_ev, r_dhq, r_dlq, r_bits, r_mapq, r_dist)])
+        counters.add("pileup_rows", n)
+        out[:, :8] = segment_counters(torch.from_numpy(mat).to(device), n_events).cpu().numpy()
+        out[:, 8:11] = _uniq_pos3(r_ev, r_readpos, n_events)
         return out
-    mat = np.stack([np.asarray(a, dtype=np.int64) for a in (r_ev, r_dhq, r_dlq, r_bits, r_mapq, r_dist)])
-    counters.add("pileup_rows", n)
-    out[:, :8] = segment_counters(torch.from_numpy(mat).to(device), n_events).cpu().numpy()
-    out[:, 8:11] = _uniq_pos3(r_ev, r_readpos, n_events)
-    return out

@@ -494,22 +494,28 @@ class ObsBatcher:
         for tier, buf in self.tiers.items():
             n = sum(len(np.atleast_1d(b["site"])) for b in buf.blocks) + len(buf.cols["site"])
             if n >= max_rows:
-                self._flush_tier(tier, buf)
+                with counters.span("scoring.flush", n=n):
+                    self._flush_tier(tier, buf)
 
     def finalize(self) -> None:
         """Run the device passes and materialize all accumulated site state.
-        Every tier is launched before the first is collected."""
-        pending = [
-            (tier, buf, self._flush_tier_launch(tier, buf))
-            for tier, buf in self.tiers.items()
-        ]
-        for tier, buf, launched in pending:
-            self._flush_tier_collect(tier, launched)
-            totals = self._totals.pop(tier, None)
-            if totals is not None:
-                t0 = time.perf_counter()
-                self._materialize(buf, totals, buf.A)
-                add_stats(materialize_wall_s=time.perf_counter() - t0)
+        Every tier is launched before the first is collected. The whole
+        is span `scoring.flush` (n: the rows), with each fold into site
+        state a `scoring.materialize` under it."""
+        with counters.span("scoring.flush") as sp:
+            pending = [
+                (tier, buf, self._flush_tier_launch(tier, buf))
+                for tier, buf in self.tiers.items()
+            ]
+            sp.n = sum(launched[2] for _, _, launched in pending if launched is not None)
+            for tier, buf, launched in pending:
+                self._flush_tier_collect(tier, launched)
+                totals = self._totals.pop(tier, None)
+                if totals is not None:
+                    t0 = time.perf_counter()
+                    with counters.span("scoring.materialize"):
+                        self._materialize(buf, totals, buf.A)
+                    add_stats(materialize_wall_s=time.perf_counter() - t0)
         _write_scoring_stats()
 
     def _accumulate(self, tier: int, out: dict) -> None:
@@ -533,8 +539,8 @@ class ObsBatcher:
     def _flush_tier_launch(self, tier: int, buf: _TierBuffer):
         """Ship the tier's rows in one transfer (from pinned memory to a
         CUDA device) and apply them in one `flush_rows`, over the mesh
-        when there is one; returns the summed device vector, or None when
-        the tier holds no rows."""
+        when there is one; returns the summed device vector, the tier's
+        sites and its rows, or None when the tier holds no rows."""
         cols_np, n = buf.materialize_cols()
         buf.blocks = []
         buf.cols = {k: [] for k in OBS_FIELDS}
@@ -550,7 +556,7 @@ class ObsBatcher:
             mat = torch.from_numpy(obs_matrix(cols_np, n))
         total = flush_rows(mat, buf.A, n_sites, self.n_samples, self.device, self.mesh)
         add_stats(device_rows=n, device_wall_s=time.perf_counter() - t0)
-        return total, n_sites
+        return total, n_sites, n
 
     def _flush_tier_collect(self, tier: int, launched) -> None:
         """Copy the tier's summed totals to the host in one copy of the flat
@@ -559,7 +565,7 @@ class ObsBatcher:
         if launched is None:
             return
         t0 = time.perf_counter()
-        vec, n_sites = launched
+        vec, n_sites, _ = launched
         A = self.tiers[tier].A
         self._accumulate(tier, totals_to_numpy(split_totals(vec.cpu(), A, n_sites, self.n_samples)))
         add_stats(device_wall_s=time.perf_counter() - t0)

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from graphtyper_tpu_torch import counters
 from graphtyper_tpu_torch.constants import (
     SCORE_CLIP,
     SCORE_GAP_EXTEND,
@@ -100,31 +101,33 @@ def align_batch(
 ) -> SWResult:
     """score / database_begin / database_end per pair, as int64 numpy.
     On the device path the clip lengths come back as -1, as on the JAX
-    package's device path (no consumer reads them)."""
+    package's device path (no consumer reads them). The call is span
+    `realign` (n: the pairs), up to its collect."""
     from graphtyper_tpu_torch.config import current_options
 
-    opts = current_options()
-    mode = "on" if opts.force_device_sw else opts.device_sw
-    if mode == "off":
-        return align_batch_host(
-            queries, q_lens, databases, d_lens, match, mismatch, gap_open, gap_extend, clip
+    with counters.span("realign", n=len(queries)):
+        opts = current_options()
+        mode = "on" if opts.force_device_sw else opts.device_sw
+        if mode == "off":
+            return align_batch_host(
+                queries, q_lens, databases, d_lens, match, mismatch, gap_open, gap_extend, clip
+            )
+        B, M = queries.shape
+        N = databases.shape[1]
+        q_lens = np.asarray(q_lens)
+        d_lens = np.asarray(d_lens)
+        if B and (q_lens.max() > M or d_lens.max() > N or q_lens.min() < 0 or d_lens.min() < 0):
+            raise ValueError("align_batch: lengths must lie in [0, M] and [0, N]")
+        dev = torch.device(device)
+
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+        s, bg, en = sw_align_rot(
+            put(queries, np.uint8), put(q_lens, np.int32), put(databases, np.uint8),
+            put(d_lens, np.int32),
+            match=match, mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend, clip=clip,
         )
-    B, M = queries.shape
-    N = databases.shape[1]
-    q_lens = np.asarray(q_lens)
-    d_lens = np.asarray(d_lens)
-    if B and (q_lens.max() > M or d_lens.max() > N or q_lens.min() < 0 or d_lens.min() < 0):
-        raise ValueError("align_batch: lengths must lie in [0, M] and [0, N]")
-    dev = torch.device(device)
-
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-
-    s, bg, en = sw_align_rot(
-        put(queries, np.uint8), put(q_lens, np.int32), put(databases, np.uint8),
-        put(d_lens, np.int32),
-        match=match, mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend, clip=clip,
-    )
-    out = torch.stack([s, bg, en]).cpu().numpy().astype(np.int64)
-    minus = np.full(B, -1, dtype=np.int64)
-    return SWResult(out[0], out[1], out[2], minus, minus.copy())
+        out = torch.stack([s, bg, en]).cpu().numpy().astype(np.int64)
+        minus = np.full(B, -1, dtype=np.int64)
+        return SWResult(out[0], out[1], out[2], minus, minus.copy())

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from graphtyper_tpu_torch import counters
 from graphtyper_tpu_torch.config import Options
 from graphtyper_tpu_torch.io.bam import AlignedRead, read_alignments
 from graphtyper_tpu_torch.io.bam_writer import write_bam
@@ -407,6 +408,7 @@ def _bamshrink_native(
             return None
     finally:
         lib.gt_bamshrink_free(handle)
+    counters.add("bamshrink_reads", n_kept.value)
     out_bytes = out.tobytes()
     compressed = bgzf_compress_bulk(out_bytes)
     with open(out_path, "wb") as f:
@@ -468,6 +470,7 @@ def bamshrink(
         header, reads = read_alignments(sam_path, parse_tags=True)
     kept: list[AlignedRead] = []
     _shrink_region(header, reads, chrom, region_begin, region_end, avg_cov_by_readlen, opts, kept, set())
+    counters.add("bamshrink_reads", len(kept))
     return _rename_sort_write(header, kept, out_path)
 
 

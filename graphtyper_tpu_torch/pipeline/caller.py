@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from graphtyper_tpu_torch import counters
 from graphtyper_tpu_torch.constants import (
     IS_ANY_ANTI_HAP_SUPPORT,
     IS_ANY_HAP_SUPPORT,
@@ -697,13 +698,15 @@ def call_pools(
     (caller.cpp:197-220 _determine_num_jobs_and_num_parts), run call_pool per
     pool on `device`, and reduce: pool VCFs stream through batched files
     (vcf_operations.cpp:20-142) and phasing maps OR-merge
-    (caller.cpp:439-482). Single pool passes straight through. Fork of
-    graphtyper_tpu/pipeline/caller.py:629."""
+    (caller.cpp:439-482). Single pool passes straight through. Each pool
+    is span `call.pool`, a child of the caller's span on whichever thread
+    runs it. Fork of graphtyper_tpu/pipeline/caller.py:629."""
     from graphtyper_tpu_torch.config import current_options
 
     pools = split_pools(hts_paths)
     if len(pools) <= 1:
-        return call_pool(graph, index, hts_paths, device, **kw)
+        with counters.span("call.pool", n=len(hts_paths)):
+            return call_pool(graph, index, hts_paths, device, **kw)
     threads = max(1, getattr(current_options(), "threads", 1))
 
     import os
@@ -721,6 +724,7 @@ def call_pools(
     # reference's per-job behavior (hts_parallel_reader.cpp:1003-1005) —
     # and the record sets are graph-derived, so the batch merge aligns
     avg_cov = kw.get("avg_cov_by_readlen")
+    parent = counters.current()
 
     def run_one(lo_pool):
         lo, pool = lo_pool
@@ -729,7 +733,8 @@ def call_pools(
             kw_pool["avg_cov_by_readlen"] = list(avg_cov[lo : lo + pool_size])
         if kw_pool.get("stream_spill"):
             kw_pool["stream_spill"] = f"{kw_pool['stream_spill']}.pool{lo}"
-        return call_pool(graph, index, pool, device, **kw_pool)
+        with counters.span("call.pool", n=len(pool), parent=parent):
+            return call_pool(graph, index, pool, device, **kw_pool)
 
     import time as _time
 

@@ -10,11 +10,15 @@ package used for the jax platform, load the C++ engine and the kernel
 library their parent built before the fan-out, and return their event
 counters with their output path. There is no serial fallback: a
 failing worker fails the call.
+Each unit's stages are spans (counters.py): `bamshrink`, `discovery`,
+`sites.write`, `graph.build`, `index.build`, `call`, `merge` and `write`
+under `unit`, under the call's `job`; the workers return theirs too.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 
@@ -237,13 +241,18 @@ def genotype(
 
     # read-preprocessing copy step (genotype.cpp:48-121 run_bamshrink): per
     # sample, slice + filter + trim into temp BAMs unless --no_bamshrink
+    n_reads = None
     if not current_options().no_bamshrink:
         from graphtyper_tpu_torch.pipeline.bamshrink import run_bamshrink
 
-        sams = run_bamshrink(
-            list(sams), padded, tmp, avg_cov_by_readlen, current_options(),
-            ref_path=ref_path,
-        )
+        with counters.span("bamshrink") as sp:
+            kept0 = counters.COUNTS["bamshrink_reads"]
+            sams = run_bamshrink(
+                list(sams), padded, tmp, avg_cov_by_readlen, current_options(),
+                ref_path=ref_path,
+            )
+            # a process shrinks one unit at a time: the change is this unit's
+            n_reads = sp.n = counters.COUNTS["bamshrink_reads"] - kept0
 
     # very large cohorts: merge per-sample inputs in chunks so pool readers
     # open fewer files (genotype.cpp:174-260)
@@ -271,7 +280,8 @@ def genotype(
     except Exception:
         ref_donor = None
     sample_names: list[str] = []
-    sites_vcf = streamlined_discovery(sams, ref_path, padded.to_string(), sample_names, device)
+    with counters.span("discovery", n=n_reads):
+        sites_vcf = streamlined_discovery(sams, ref_path, padded.to_string(), sample_names, device)
     if prior_vcf:
         from graphtyper_tpu_torch.io.vcf_io import VcfReader
         from graphtyper_tpu_torch.typer.variant import Variant as TyperVariant
@@ -283,12 +293,13 @@ def genotype(
             )
             sites_vcf.variants.append(v)
     it1_final = os.path.join(it1, "final.vcf.gz")
-    sites_vcf.write(it1_final, contigs, abs_pos, filter_zero_qual=False, is_dropping_genotypes=True)
     # in-memory sites handoff: the file is the checkpoint, the records feed
     # the next iteration's graph directly (skips bgzf+tabix read-back)
     from graphtyper_tpu_torch.graph.build import records_from_vcf_output
 
-    prev_records = records_from_vcf_output(sites_vcf, abs_pos)
+    with counters.span("sites.write"):
+        sites_vcf.write(it1_final, contigs, abs_pos, filter_zero_qual=False, is_dropping_genotypes=True)
+        prev_records = records_from_vcf_output(sites_vcf, abs_pos)
 
     # ---- iterations 2..LAST ----
     FIRST_CALLONLY_ITERATION = 2
@@ -303,64 +314,83 @@ def genotype(
         is_last = i == LAST_ITERATION
         out_dir = os.path.join(tmp, f"it{i}")
         os.makedirs(out_dir, exist_ok=True)
-        graph = construct_graph(
-            ref_path, prev_vcf, padded.to_string(), is_sv_graph=False, use_index=True,
-            add_all_variants=True, records=prev_records,
-        )
+        with counters.span("graph.build"):
+            graph = construct_graph(
+                ref_path, prev_vcf, padded.to_string(), is_sv_graph=False, use_index=True,
+                add_all_variants=True, records=prev_records,
+            )
         # successive iterations share almost every k-mer (the reference
         # backbone), so the seed filter carries over with a small additive
         # update instead of a rebuild (native_align._adopt_donor_filter);
         # iteration 2 adopts the prebuilt reference-backbone filter
-        index = index_graph(graph, seed_filter_donor=prev_index or ref_donor)
+        with counters.span("index.build"):
+            index = index_graph(graph, seed_filter_donor=prev_index or ref_donor)
         prev_index = index
-        result = call_pools(
-            graph,
-            index,
-            sams,
-            device,
-            region=padded,
-            avg_cov_by_readlen=avg_cov_by_readlen,
-            is_writing_calls_vcf=is_last,
-            is_writing_hap=not is_last,
-            ref_path=ref_path,
-            scorer_mesh=scorer_mesh,
-            # call iterations stream the identical record sequence: iteration
-            # 2 can spill the staged batches and iteration 3 replay them,
-            # skipping decompress+parse+extract. Opt-in (GT_STREAM_SPILL=1),
-            # as in the JAX package (graphtyper_tpu/pipeline/genotype.py:282):
-            # the spill is about four times the BGZF input, so it pays only
-            # where the disk is faster than decompression.
-            stream_spill=os.path.join(tmp, "stream_spill")
-            if os.environ.get("GT_STREAM_SPILL", "0") == "1"
-            else None,
-        )
+        with counters.span("call"):
+            result = call_pools(
+                graph,
+                index,
+                sams,
+                device,
+                region=padded,
+                avg_cov_by_readlen=avg_cov_by_readlen,
+                is_writing_calls_vcf=is_last,
+                is_writing_hap=not is_last,
+                ref_path=ref_path,
+                scorer_mesh=scorer_mesh,
+                # call iterations stream the identical record sequence: iteration
+                # 2 can spill the staged batches and iteration 3 replay them,
+                # skipping decompress+parse+extract. Opt-in (GT_STREAM_SPILL=1),
+                # as in the JAX package (graphtyper_tpu/pipeline/genotype.py:282):
+                # the spill is about four times the BGZF input, so it pays only
+                # where the disk is faster than decompression.
+                stream_spill=os.path.join(tmp, "stream_spill")
+                if os.environ.get("GT_STREAM_SPILL", "0") == "1"
+                else None,
+            )
         if not is_last:
             next_vcf = os.path.join(out_dir, "final.vcf.gz")
-            filtered = vcf_merge_and_filter([result.vcf], next_vcf, result.ph, graph)
-            prev_records = records_from_vcf_output(filtered, abs_pos)
+            with counters.span("merge"):
+                filtered = vcf_merge_and_filter([result.vcf], next_vcf, result.ph, graph)
+                prev_records = records_from_vcf_output(filtered, abs_pos)
             prev_vcf = next_vcf
         else:
             final_result = result
-            vcf_merge_and_break(
-                [result.vcf],
-                out_vcf_path,
-                region.to_string(),
-                graph,
-                filter_zero_qual=output_all_variants,
-            )
-            if current_options().normal_and_no_variant_overlapping:
-                # a second, non-overlapping decomposition of the same calls
-                # (genotype.cpp:594-603)
+            with counters.span("merge"):
                 vcf_merge_and_break(
                     [result.vcf],
-                    os.path.join(tmp, "graphtyper_no_variant_overlapping.vcf.gz"),
+                    out_vcf_path,
                     region.to_string(),
                     graph,
                     filter_zero_qual=output_all_variants,
-                    force_no_variant_overlapping=True,
                 )
+                if current_options().normal_and_no_variant_overlapping:
+                    # a second, non-overlapping decomposition of the same calls
+                    # (genotype.cpp:594-603)
+                    vcf_merge_and_break(
+                        [result.vcf],
+                        os.path.join(tmp, "graphtyper_no_variant_overlapping.vcf.gz"),
+                        region.to_string(),
+                        graph,
+                        filter_zero_qual=output_all_variants,
+                        force_no_variant_overlapping=True,
+                    )
 
     # ---- copy results ----
+    with counters.span("write"):
+        dst = _copy_results(tmp, output_path, region, prev_vcf, out_vcf_path)
+    # --no_cleanup keeps the temporary iteration folders (genotype.cpp:664)
+    if not keep_tmp and not current_options().no_cleanup:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dst
+
+
+def _copy_results(tmp: str, output_path: str, region, prev_vcf: str, out_vcf_path: str) -> str:
+    """Copy a unit's results out of its temporary directory: the sites of
+    its last call iteration's input, its VCF with the index, and the
+    sidecars; returns the VCF's path."""
+    import shutil
+
     sites_dst = os.path.join(output_path, "input_sites", region.to_file_string() + ".vcf.gz")
     shutil.copyfile(prev_vcf, sites_dst)
     final_name = f"{region.begin + 1:09d}-{region.end:09d}.vcf.gz"
@@ -384,23 +414,25 @@ def genotype(
         br2 = os.path.join(tmp, "graphtyper_no_variant_overlapping.samples_byte_range")
         if os.path.exists(br2):
             shutil.copyfile(br2, novl_dst[: -len(".vcf.gz")] + ".samples_byte_range")
-    # --no_cleanup keeps the temporary iteration folders (genotype.cpp:664)
-    if not keep_tmp and not current_options().no_cleanup:
-        shutil.rmtree(tmp, ignore_errors=True)
     return dst
 
 
 def _genotype_one(args_tuple):
     """Region worker (fork of graphtyper_tpu/pipeline/genotype.py:347):
-    returns (output path, this job's event counters)."""
-    ref_path, sams, sub_str, output_path, device, opts, kw = args_tuple
+    returns (output path, this job's event counters, its spans). The job
+    carries its parent's span, None when the parent records none, and when
+    it was handed to the pool, on the wall clock."""
+    ref_path, sams, sub_str, output_path, device, opts, kw, job, submit_ns = args_tuple
     from graphtyper_tpu_torch.config import set_options
 
     # spawn children start from default Options — restore the parent's
     set_options(opts)
-    counters.COUNTS.clear()  # a warm worker reports this job only
-    out = genotype(ref_path, sams, sub_str, output_path, device, **kw)
-    return out, dict(counters.COUNTS)
+    counters.trace(job is not None)
+    counters.take()  # a warm worker reports this job only
+    counters.record("pool.wait", submit_ns, time.time_ns(), parent=job)
+    with counters.span("unit", parent=job):
+        out = genotype(ref_path, sams, sub_str, output_path, device, **kw)
+    return (out, *counters.take())
 
 
 def genotype_regions(
@@ -415,53 +447,63 @@ def genotype_regions(
 ) -> list[str]:
     """Split the region into <=50kb units and genotype each on `device`
     (genotype.cpp:683-741, main.cpp:30-58). With processes > 1 the units
-    fan out over a persistent spawn-process pool; each worker's counters are
-    added to counters.WORKERS. Fork of graphtyper_tpu/pipeline/genotype.py:388."""
+    fan out over a persistent spawn-process pool; each worker's counters and
+    spans are added to counters.WORKERS and counters.WORKER_SPANS. The call
+    is span `job`, each unit a `unit` under it. Fork of
+    graphtyper_tpu/pipeline/genotype.py:388."""
     from graphtyper_tpu_torch.config import current_options
     from graphtyper_tpu_torch.graph.coords import split_region
     from graphtyper_tpu_torch.io.fasta import FastaFile
 
-    device = torch.device(device)
-    apply_cohort_size_tuning(len(sams))
-    region = GenomicRegion.parse(region_str)
-    fasta = FastaFile(ref_path)
-    if fasta.has_contig(region.chr):
-        region.end = min(region.end, fasta.contig_length(region.chr))
-    fasta.close()
-    subs = list(split_region(region, max_region_size))
-    if len(subs) > 1:
-        # index inputs once in the parent so every region worker's bamshrink
-        # decodes only its slice (io/bai.py) instead of the whole file
-        from graphtyper_tpu_torch.io.bai import ensure_bai
+    with counters.span("job"):
+        device = torch.device(device)
+        apply_cohort_size_tuning(len(sams))
+        region = GenomicRegion.parse(region_str)
+        fasta = FastaFile(ref_path)
+        if fasta.has_contig(region.chr):
+            region.end = min(region.end, fasta.contig_length(region.chr))
+        fasta.close()
+        subs = list(split_region(region, max_region_size))
+        if len(subs) > 1:
+            # index inputs once in the parent so every region worker's bamshrink
+            # decodes only its slice (io/bai.py) instead of the whole file
+            from graphtyper_tpu_torch.io.bai import ensure_bai
 
-        if len(sams) > 1:
-            from concurrent.futures import ThreadPoolExecutor
+            if len(sams) > 1:
+                from concurrent.futures import ThreadPoolExecutor
 
-            with ThreadPoolExecutor(max_workers=min(8, len(sams))) as ex:
-                list(ex.map(ensure_bai, sams))
-        else:
-            ensure_bai(sams[0])
-    if processes is None:
-        processes = getattr(current_options(), "threads", 1)
-    if processes > 1 and len(subs) > 1:
-        # build once here; the workers find the libraries built
-        from graphtyper_tpu_torch.io.native import get_lib
+                with ThreadPoolExecutor(max_workers=min(8, len(sams))) as ex:
+                    list(ex.map(ensure_bai, sams))
+            else:
+                ensure_bai(sams[0])
+        if processes is None:
+            processes = getattr(current_options(), "threads", 1)
+        if processes > 1 and len(subs) > 1:
+            # build once here; the workers find the libraries built
+            from graphtyper_tpu_torch.io.native import get_lib
 
-        get_lib()
-        if device.type == "cuda":
-            from graphtyper_tpu_torch import kernels
+            get_lib()
+            if device.type == "cuda":
+                from graphtyper_tpu_torch import kernels
 
-            kernels.load()
-        jobs = [
-            (ref_path, sams, s.to_string(), output_path, str(device), current_options(), kw)
-            for s in subs
-        ]
+                kernels.load()
+            job = counters.current()
+            submit_ns = time.time_ns() if job is not None else None
+            jobs = [
+                (ref_path, sams, s.to_string(), output_path, str(device), current_options(), kw, job,
+                 submit_ns)
+                for s in subs
+            ]
+            outs = []
+            for out, job_counts, job_spans in _region_pool(processes).map(_genotype_one, jobs):
+                counters.add_worker(job_counts, job_spans)
+                outs.append(out)
+            return outs
         outs = []
-        for out, job_counts in _region_pool(processes).map(_genotype_one, jobs):
-            counters.WORKERS.update(job_counts)
-            outs.append(out)
+        for s in subs:
+            with counters.span("unit"):
+                outs.append(genotype(ref_path, sams, s.to_string(), output_path, device, **kw))
         return outs
-    return [genotype(ref_path, sams, s.to_string(), output_path, device, **kw) for s in subs]
 
 
 # ---- persistent region worker pool ----------------------------------------

@@ -3,19 +3,28 @@ counterpart of tools/stage_ledger.py).
 
 Runs one workload in this process (one region worker, one pool thread,
 so the stages run one after another and their walls add up to the run's),
-three times: a warm run, a clean run (the wall without profiling) and a
-run under cProfile
-with the C++ engine's stage counters (GT_NATIVE_PROFILE=1) and the
-scoring telemetry (GT_SCORING_STATS, ops/site_scoring.py) on. The
-profiled time is bucketed into pipeline stages, each marked device-eligible
+three times: a warm run, a clean run (the wall without tracing) and a
+traced run, with the port's spans (counters.py), the C++ engine's stage
+counters (GT_NATIVE_PROFILE=1) and the scoring telemetry
+(GT_SCORING_STATS, ops/site_scoring.py) on. Each stage is the self time of
+its spans (a span's wall less its children's), each marked device-eligible
 when the port launches a CUDA kernel or torch op for it:
 
-    fp_aggregation_device   ops/discovery_pileup.py aggregate_rows
-    site_scoring_device     ops/site_scoring.py finalize (apply_tier); its
-                            wall is device_wall_s + materialize_wall_s of
-                            the telemetry lines, since cProfile inflates the
-                            Python loops of the materialization
-    sw_realign_device       ops/sw.py align_batch (csrc/sw_rot.cu)
+    bamshrink               bamshrink
+    discovery_first_pass    discovery
+    fp_aggregation_device   discovery.pileup (ops/discovery_pileup.py
+                            aggregate_rows)
+    graph_build             graph.build
+    kmer_index              index.build
+    align_genotype_host     call and call.pool, less the engine's seed share
+                            and the verdicts below
+    site_scoring_device     scoring.flush and scoring.materialize
+                            (ops/site_scoring.py finalize: staging, launch,
+                            collect and the fold into site state)
+    sw_realign_device       realign (ops/sw.py align_batch, csrc/sw_rot.cu)
+    merge_decompose         merge
+    vcf_write               sites.write and write (the sites VCF, the copy
+                            of the results)
     align_clean_device      the verdict kernel's align_wall_s from the
                             telemetry lines, with its clean share from
                             device_align_stats
@@ -23,7 +32,9 @@ when the port launches a CUDA kernel or torch op for it:
 
 The last two are the call iterations' align stage, device work only with
 --device-align (GT_DEVICE_ALIGN=on and device_seed="on"); without it they
-are host work and the verdicts do not run.
+are host work and the verdicts do not run. `scoring_cprofile_s`, the JAX
+tool's cProfile time of the scoring finalize, is here the wall of the
+scoring.flush spans.
 
 Every other stage is host work. CUDA launches are asynchronous, so a
 stage's time is the host's wall up to the collect of its device work: the
@@ -43,10 +54,8 @@ seed 9).
 from __future__ import annotations
 
 import argparse
-import cProfile
 import json
 import os
-import pstats
 import re
 import shutil
 import sys
@@ -54,23 +63,22 @@ import tempfile
 import time
 from dataclasses import replace
 
-# stage -> (patterns of (file, function) in the pstats keys, device-eligible?)
+from graphtyper_tpu_torch import counters
+
+# stage -> (its spans, device-eligible?)
 STAGES = [
-    ("bamshrink", [("pipeline/bamshrink.py", "run_bamshrink")], False),
-    ("discovery_first_pass", [("typer/discovery.py", "streamlined_discovery")], False),
-    ("fp_aggregation_device", [("ops/discovery_pileup.py", "aggregate_rows")], True),
-    ("graph_build", [("graph/build.py", "construct_graph")], False),
-    ("kmer_index", [("index/build.py", "index_graph")], False),
+    ("bamshrink", ("bamshrink",), False),
+    ("discovery_first_pass", ("discovery",), False),
+    ("fp_aggregation_device", ("discovery.pileup",), True),
+    ("graph_build", ("graph.build",), False),
+    ("kmer_index", ("index.build",), False),
     # align + score: the pooled caller; its device-eligible inner parts are
     # measured apart below and subtracted
-    ("align_genotype_host", [("pipeline/caller.py", "call_pools")], False),
-    ("site_scoring_device", [("ops/site_scoring.py", "finalize")], True),
-    ("sw_realign_device", [("ops/sw.py", "align_batch")], True),
-    ("merge_decompose", [
-        ("pipeline/vcf_operations.py", "vcf_merge_and_break"),
-        ("pipeline/vcf_operations.py", "vcf_merge_and_filter"),
-    ], False),
-    ("vcf_write", [("typer/vcf_out.py", "write")], False),
+    ("align_genotype_host", ("call", "call.pool"), False),
+    ("site_scoring_device", ("scoring.flush", "scoring.materialize"), True),
+    ("sw_realign_device", ("realign",), True),
+    ("merge_decompose", ("merge",), False),
+    ("vcf_write", ("sites.write", "write"), False),
 ]
 
 TIMING = ("host wall per stage, up to the collect of its device work; CUDA launches are "
@@ -133,6 +141,7 @@ def run(workload: str, device="cuda", n_samples: int = 1, kb: int = 200,
     tmp = tempfile.mkdtemp(prefix="gt_ledger_")
     base = current_options()
     saved_env = {k: os.environ.get(k) for k in ("GT_NATIVE_PROFILE", "GT_SCORING_STATS", "GT_DEVICE_ALIGN")}
+    tracing = counters.tracing()
     try:
         sim, region = build_workload(tmp, workload, n_samples, kb)
         # pool threads would run the scorer's launches and collects side by
@@ -154,24 +163,25 @@ def run(workload: str, device="cuda", n_samples: int = 1, kb: int = 200,
         t0 = time.perf_counter()
         one("clean")
         wall_clean = time.perf_counter() - t0
-        open(stats_path, "w").close()  # keep only the profiled run's lines
+        open(stats_path, "w").close()  # keep only the traced run's lines
 
         prof_path = os.path.join(tmp, "native_prof.txt")
         device_align_stats()  # reset the engine's verdict counters
         saved_fd = os.dup(2)
         prof_fd = os.open(prof_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
-        pr = cProfile.Profile()
+        counters.reset()
+        counters.trace(True)
         t0 = time.perf_counter()
         os.dup2(prof_fd, 2)
         try:
-            pr.enable()
             one("out")
-            pr.disable()
         finally:
             os.dup2(saved_fd, 2)
             os.close(prof_fd)
             os.close(saved_fd)
+            counters.trace(tracing)
         wall = time.perf_counter() - t0
+        spans = counters.spans()
         clean, fallback, _bad = device_align_stats()
         with open(prof_path) as f:
             native = _native_profile_seed_s(f.read())
@@ -185,29 +195,15 @@ def run(workload: str, device="cuda", n_samples: int = 1, kb: int = 200,
                 os.environ[k] = v
     shutil.rmtree(tmp, ignore_errors=True)
 
-    cum: dict[str, float] = {}
-    for (fn, _line, name), (_cc, _nc, _tt, ct, _callers) in pstats.Stats(pr).stats.items():
-        for stage, pats, _dev in STAGES:
-            for pat_file, pat_name in pats:
-                if pat_file in fn.replace("\\", "/") and pat_name == name:
-                    cum[stage] = cum.get(stage, 0.0) + ct
-    scoring_cprofile = cum.get("site_scoring_device", 0.0)
-    cum["site_scoring_device"] = (tel.get("device_wall_s", 0.0) + tel.get("host_apply_wall_s", 0.0)
-                                  + tel.get("materialize_wall_s", 0.0))
+    own = counters.self_seconds(spans)
+    scoring_flush = sum((s.end_ns - s.start_ns) / 1e9 for s in spans if s.name == "scoring.flush")
     align_s = tel.get("align_wall_s", 0.0) if device_align else 0.0
-    # call_pools' cumulative time holds the scoring finalize, the seed and
-    # the verdicts: report the host share net of them
-    host_align = max(0.0, cum.get("align_genotype_host", 0.0) - scoring_cprofile - native["seed_s"]
-                     - align_s)
-    disc_host = max(0.0, cum.get("discovery_first_pass", 0.0) - cum.get("fp_aggregation_device", 0.0))
     ledger = {}
-    for stage, _p, dev in STAGES:
+    for stage, names, dev in STAGES:
+        v = sum(own.get(name, 0.0) for name in names)
         if stage == "align_genotype_host":
-            v = host_align
-        elif stage == "discovery_first_pass":
-            v = disc_host
-        else:
-            v = cum.get(stage, 0.0)
+            # the pooled caller's own time holds the seed and the verdicts
+            v = max(0.0, v - native["seed_s"] - align_s)
         ledger[stage] = {"wall_s": v, "device_eligible": dev}
     ledger["seed_device"] = {"wall_s": native["seed_s"], "device_eligible": device_align}
     ledger["align_clean_device"] = {
@@ -228,7 +224,7 @@ def run(workload: str, device="cuda", n_samples: int = 1, kb: int = 200,
         "wall_clean_s": wall_clean,
         "stages": ledger,
         "telemetry": tel,
-        "scoring_cprofile_s": scoring_cprofile,
+        "scoring_cprofile_s": scoring_flush,
         "unattributed_s": max(0.0, wall - staged),
         "device_eligible_fraction": f_dev,
         "amdahl_speedup_ceiling": 1.0 / (1.0 - f_dev) if f_dev < 1 else None,
