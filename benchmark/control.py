@@ -13,10 +13,20 @@ run them.
   FALSE_SHIFT bp to its right, with its genotypes, as a discovery that
   emits a site twice, once at a wrong place, would report it.
 
-    python -m benchmark.control --workload <name> --seeds <n> [<n> ...] [--fault half_depth|false_sites]
+Of a `genotype_sv` cell (benchmark/reference_sv.py):
+
+- `sv_rotate` (the control): the SV reference's calls with one guarantee
+  of the configuration broken (each sample's calls are its own): every
+  SV's genotypes moved from sample s to sample s + 1 (the last to the
+  first).
+- `sv_drop` (a fault): the SV reference's calls with the record of every
+  DROP_EVERY-th SV of a region left out.
+
+    python -m benchmark.control --workload <name> --seeds <n> [<n> ...] [--fault <name>]
 
 prints one JSON line a seed with the numbers that `benchmark.run`
-compares and the `correct` it decides (false, for both).
+compares and the `correct` it decides (false, for each). The fault
+defaults to the control of the cell's subcommand.
 """
 
 from __future__ import annotations
@@ -25,11 +35,14 @@ import argparse
 import json
 import sys
 
-from benchmark import reference
+import numpy as np
+
+from benchmark import reference, reference_sv
 from benchmark.gen import make_region
 
 FALSE_EVERY = 20
 FALSE_SHIFT = 3
+DROP_EVERY = 10
 
 
 def half_depth(reg, full: reference.SiteCalls) -> dict:
@@ -52,6 +65,20 @@ def false_sites(reg, full: reference.SiteCalls) -> dict:
 FAULTS = {"half_depth": half_depth, "false_sites": false_sites}
 
 
+def sv_rotate(svs, gt: np.ndarray) -> dict:
+    return reference_sv.control_calls(svs, np.roll(gt, 1, axis=1))
+
+
+def sv_drop(svs, gt: np.ndarray) -> dict:
+    out = reference_sv.control_calls(svs, gt)
+    for j in range(0, len(svs), DROP_EVERY):
+        out.pop(svs.ids[j], None)
+    return out
+
+
+SV_FAULTS = {"sv_rotate": sv_rotate, "sv_drop": sv_drop}
+
+
 def fault_records(seed: int, cfg: dict, length: int, n_regions: int, fault: str) -> list[dict]:
     """`reference.compare` of the fault's records in each region."""
     per_job = []
@@ -62,18 +89,32 @@ def fault_records(seed: int, cfg: dict, length: int, n_regions: int, fault: str)
     return per_job
 
 
+def sv_fault_records(seed: int, cfg: dict, length: int, n_regions: int, fault: str) -> list[dict]:
+    """`reference_sv.compare` of the fault's records in each region."""
+    from benchmark.run import sv_references
+
+    refs = sv_references(seed, cfg, length, list(range(n_regions)))
+    return [reference_sv.compare(SV_FAULTS[fault](svs, gt), svs, length, gt) for gt, svs in refs.values()]
+
+
 def main(argv=None) -> int:
     from benchmark.run import cell, decide
 
     ap = argparse.ArgumentParser(prog="python -m benchmark.control")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
-    ap.add_argument("--fault", choices=sorted(FAULTS), default="half_depth")
+    ap.add_argument("--fault", choices=sorted(FAULTS) + sorted(SV_FAULTS))
     args = ap.parse_args(argv)
     _, work, cfg, traffic = cell(args.workload)
+    sub = traffic.get("subcommand", "genotype")
+    faults = SV_FAULTS if sub == "genotype_sv" else FAULTS
+    fault = args.fault or ("sv_rotate" if sub == "genotype_sv" else "half_depth")
+    if fault not in faults:
+        raise SystemExit(f"fault {fault!r} is not one of a {sub} cell's: {sorted(faults)}")
+    records = sv_fault_records if sub == "genotype_sv" else fault_records
     for seed in args.seeds:
-        ok, got = decide(fault_records(seed, cfg, traffic["job_bp"], traffic["regions_in_rotation"], args.fault))
-        print(json.dumps({"workload": work["name"], "fault": args.fault, "seed": seed, "correct": ok, **got}),
+        ok, got = decide(records(seed, cfg, traffic["job_bp"], traffic["regions_in_rotation"], fault), sub)
+        print(json.dumps({"workload": work["name"], "fault": fault, "seed": seed, "correct": ok, **got}),
               flush=True)
     return 0
 

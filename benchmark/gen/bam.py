@@ -80,15 +80,15 @@ def encode_records(reads: Reads, sample: str, ref_id: int = 0, mapq: int = 60) -
     np.cumsum(size, out=starts[1:])
     fixed = np.zeros(n, dtype=_FIXED)
     fixed["block_size"] = size - 4
-    fixed["ref_id"] = ref_id
+    fixed["ref_id"] = ref_id if reads.ref_id is None else reads.ref_id
     fixed["pos"] = reads.pos
     fixed["l_read_name"] = name_len
-    fixed["mapq"] = mapq
+    fixed["mapq"] = mapq if reads.mapq is None else reads.mapq
     fixed["bin"] = reg2bin(reads.pos, reads.end)
     fixed["n_cigar"] = n_cigar
     fixed["flag"] = reads.flag
     fixed["l_seq"] = L
-    fixed["next_ref_id"] = ref_id
+    fixed["next_ref_id"] = ref_id if reads.next_ref_id is None else reads.next_ref_id
     fixed["next_pos"] = reads.mate_pos
     fixed["tlen"] = reads.tlen
     fixed_b = fixed.view(np.uint8).reshape(n, 36)
@@ -152,14 +152,16 @@ def write_bam(path: str, contig: str, contig_len: int, sample: str, reads: Reads
     u = starts + len(head)
     blk = u // BLOCK_DATA
     voff = (coff[blk] << 16) | (u - blk * BLOCK_DATA)
+    # records with no place (ref_id -1) come last and are only counted
+    placed = len(reads) if reads.ref_id is None else int((reads.ref_id >= 0).sum())
     with open(path + ".bai", "wb") as f:
-        f.write(bai_bytes(reads.pos, reads.end, voff))
+        f.write(bai_bytes(reads.pos[:placed], reads.end[:placed], voff[: placed + 1], len(reads) - placed))
 
 
-def bai_bytes(pos: np.ndarray, end: np.ndarray, voff: np.ndarray) -> bytes:
+def bai_bytes(pos: np.ndarray, end: np.ndarray, voff: np.ndarray, n_no_coor: int = 0) -> bytes:
     """The BAI of one sorted contig: `voff` holds each record's virtual
     offset and the end of the last one. Consecutive records of one bin
-    form one chunk."""
+    form one chunk. `n_no_coor` records with no place follow them."""
     n = len(pos)
     bins = reg2bin(pos, end)
     out = bytearray(b"BAI\x01" + struct.pack("<i", 1))
@@ -190,5 +192,5 @@ def bai_bytes(pos: np.ndarray, end: np.ndarray, voff: np.ndarray) -> bytes:
         out += struct.pack("<i", n_win) + lin.astype("<u8").tobytes()
     else:
         out += struct.pack("<ii", 0, 0)
-    out += struct.pack("<Q", 0)
+    out += struct.pack("<Q", n_no_coor)
     return bytes(out)

@@ -66,6 +66,11 @@ class Reads:
     seq: np.ndarray        # [n, L] uint8 ASCII bases
     qual: np.ndarray       # [n, L] uint8 phred
     cigars: list           # [n] of int32 arrays
+    # per read where reads differ (an SV region's reads; benchmark/gen/sv.py):
+    # MAPQ, and the contig of the read and of its mate (-1: no place)
+    mapq: np.ndarray | None = None
+    ref_id: np.ndarray | None = None
+    next_ref_id: np.ndarray | None = None
 
     def __len__(self) -> int:
         return len(self.pos)
@@ -76,24 +81,35 @@ def random_reference(rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 def make_variants(rng: np.random.Generator, seq: np.ndarray, n_sites: int, n_indels: int,
-                  max_indel_len: int) -> Variants:
+                  max_indel_len: int, blocked: list | None = None) -> Variants:
     """`n_sites` sites at uniform places 100 bp or more from each end (a
     SNP at least 2 bp before the next site, an indel its reference span
     and 2 bp more), `n_indels` of them indels, half deletions and half
     insertions of 1..max_indel_len bases, the others SNPs to one of the
     three other bases. The counts are fixed, so that every seed gives the
-    same amount of work; the places and kinds are drawn."""
+    same amount of work; the places and kinds are drawn.
+
+    `blocked` (sorted, disjoint [start, end) zones, each wider than an
+    indel) takes stretches out: the places are drawn on the sequence with
+    the zones cut out, and each zone is put back before the first place
+    at or after its start, so no site starts inside one. With no zones
+    the draws and places are those without the argument."""
     indel = np.zeros(n_sites, dtype=bool)
     indel[rng.choice(n_sites, size=n_indels, replace=False)] = True
     ilen = rng.integers(1, max_indel_len + 1, size=n_sites)
     dele = indel & (rng.random(n_sites) < 0.5)
     span = np.where(dele, 1 + ilen, 1)
     spacing = np.where(indel, span + 2, 2)
-    lo, hi = 100, len(seq) - 100
+    zones = np.array(blocked or [], dtype=np.int64).reshape(-1, 2)
+    widths = zones[:, 1] - zones[:, 0]
+    lo, hi = 100, len(seq) - 100 - int(widths.sum())
     slack = hi - lo - int(spacing.sum())
     if slack < 0:
         raise ValueError(f"{n_sites} sites do not fit in {len(seq)} bp")
     pos = lo + np.concatenate([[0], np.cumsum(spacing)[:-1]]) + np.sort(rng.integers(0, slack + 1, size=n_sites))
+    if len(zones):
+        before = np.concatenate([[0], np.cumsum(widths)])
+        pos = pos + before[np.searchsorted(zones[:, 0] - before[:-1], pos, side="right")]
     shift = rng.integers(1, 4, size=n_sites)
     ref_l, alt_l = [], []
     for p, i, d, n, k in zip(pos.tolist(), indel.tolist(), dele.tolist(), ilen.tolist(), shift.tolist()):

@@ -62,6 +62,9 @@ class Run:
     kernel_calls: list = field(default_factory=list)
     util_samples: list = field(default_factory=list)   # (seconds, GPU utilization %) from NVML
     busy_s: float | None = None
+    window: tuple = (0, 0)       # (start_ns, end_ns) of the window on the wall clock
+    spans: list = field(default_factory=list)       # the port's spans (counters.Span), cut to the window
+    intervals: list = field(default_factory=list)   # (start_ns, end_ns) of every device operation traced
 
     @property
     def reads(self) -> int:
@@ -481,9 +484,14 @@ def read_worker_traces(out_dir: str) -> tuple[list, list]:
     return intervals, named
 
 
-def breakdown(named: list, intervals: list, window: tuple, top: int = 10) -> dict:
+def breakdown(named: list, intervals: list, window: tuple, top: int = 10, spans: list | None = None) -> dict:
     """The device operations that took most time in the window, and the
-    longest idle gaps between them."""
+    longest idle gaps between them; given the port's spans, each gap named
+    for what the host was doing (benchmark/spans.py)."""
+    if spans:
+        from benchmark import spans as span_readings
+
+        return span_readings.breakdown(named, intervals, window, spans, top)
     lo, hi = window
     tot: dict[str, float] = {}
     for (name, sec), (s, e) in zip(named, intervals):
