@@ -184,6 +184,15 @@ def span(name: str, n: int | None = None, parent: tuple | None = None):
     return _Open(name, n, parent)
 
 
+def outermost(name: str, n: int | None = None):
+    """`span(name, n)`, or the no-op where a span `name` is already open on
+    this thread: for a function whose callers may time it under that name
+    themselves."""
+    if not _on or any(s.name == name for s in getattr(_local, "stack", ())):
+        return _NOOP
+    return _Open(name, n, None)
+
+
 def record(name: str, start_ns: int, end_ns: int, n: int | None = None, parent: tuple | None = None) -> None:
     """A span timed elsewhere: from `start_ns` (stamped in another process,
     on the same clock) to `end_ns`, on this thread."""

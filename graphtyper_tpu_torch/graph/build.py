@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from graphtyper_tpu_torch import counters
 from graphtyper_tpu_torch.graph.coords import AbsolutePosition, GenomicRegion
 from graphtyper_tpu_torch.graph.graph import Graph
 from graphtyper_tpu_torch.graph.records import Allele, VarRecord
@@ -221,6 +222,10 @@ def construct_graph(
         for var in var_records:
             extend_record_while_ambiguous(var, reference_sequence, region.begin)
 
+    if is_sv_graph:
+        # one SV per breakpoint allele: an insertion or duplication with two
+        # breakpoints counts two
+        counters.add("sv_alleles", len(graph.svs))
     var_records.sort(key=lambda v: v.pos)
     graph.add_genomic_region(reference_sequence, var_records, region, add_all_variants)
     if not graph.check():

@@ -249,7 +249,8 @@ def _build_pool_result(
         if is_sv:
             from graphtyper_tpu_torch.typer.sv_reformat import reformat_sv_vcf_records
 
-            reformat_sv_vcf_records(vcf.variants, reference_depth, graph)
+            with counters.span("sv.reformat", n=len(vcf.variants)):
+                reformat_sv_vcf_records(vcf.variants, reference_depth, graph)
             vcf.variants.sort(key=lambda v: (v.abs_pos, v.seqs))
             for var in vcf.variants:
                 var.stats = type(var.stats)()  # clear
@@ -348,7 +349,15 @@ def compute_ph_map(scorer: SiteScorer) -> dict:
     return ph
 
 
-def call_pool(
+def call_pool(graph, index: KmerIndex, hts_paths: list[str], device: torch.device | str, *args,
+              **kw) -> PoolResult:
+    """`_call_pool` as span `call.pool` (n: samples), unless the caller
+    (`call_pools`) already has one open on this thread."""
+    with counters.outermost("call.pool", n=len(hts_paths)):
+        return _call_pool(graph, index, hts_paths, device, *args, **kw)
+
+
+def _call_pool(
     graph,
     index: KmerIndex,
     hts_paths: list[str],
@@ -700,13 +709,13 @@ def call_pools(
     (vcf_operations.cpp:20-142) and phasing maps OR-merge
     (caller.cpp:439-482). Single pool passes straight through. Each pool
     is span `call.pool`, a child of the caller's span on whichever thread
-    runs it. Fork of graphtyper_tpu/pipeline/caller.py:629."""
+    runs it (a single pool's `call_pool` opens it on the caller's thread).
+    Fork of graphtyper_tpu/pipeline/caller.py:629."""
     from graphtyper_tpu_torch.config import current_options
 
     pools = split_pools(hts_paths)
     if len(pools) <= 1:
-        with counters.span("call.pool", n=len(hts_paths)):
-            return call_pool(graph, index, hts_paths, device, **kw)
+        return call_pool(graph, index, hts_paths, device, **kw)
     threads = max(1, getattr(current_options(), "threads", 1))
 
     import os

@@ -13,6 +13,8 @@ failing worker fails the call.
 Each unit's stages are spans (counters.py): `bamshrink`, `discovery`,
 `sites.write`, `graph.build`, `index.build`, `call`, `merge` and `write`
 under `unit`, under the call's `job`; the workers return theirs too.
+`genotype_sv` is a `job` of `graph.build`, `index.build`, `call.pool`
+(with `sv.reformat` inside), `merge` and `write`.
 """
 
 from __future__ import annotations
@@ -132,7 +134,14 @@ def genotype_sv(
     avg_cov_by_readlen: list[float] | None = None,
 ) -> str:
     """Single-iteration SV genotyping (genotype_sv.cpp:26-180), the pool
-    scored on `device`. Fork of graphtyper_tpu/pipeline/genotype.py:84."""
+    scored on `device`. The call is span `job`, with `graph.build`,
+    `index.build`, `call.pool`, `merge` and `write` under it. Fork of
+    graphtyper_tpu/pipeline/genotype.py:84."""
+    with counters.span("job"):
+        return _genotype_sv(ref_path, sv_vcf, sams, region_str, output_dir, device, avg_cov_by_readlen)
+
+
+def _genotype_sv(ref_path, sv_vcf, sams, region_str, output_dir, device, avg_cov_by_readlen) -> str:
     region = GenomicRegion.parse(region_str)
     _clamp_region_to_contig(region, ref_path)
     padded = GenomicRegion(region.chr, region.begin, region.end)
@@ -152,8 +161,10 @@ def genotype_sv(
 
         with ThreadPoolExecutor(max_workers=min(8, len(bams))) as ex:
             list(ex.map(ensure_bai, bams))
-    graph = construct_graph(ref_path, sv_vcf, padded.to_string(), is_sv_graph=True, use_index=True)
-    index = index_graph(graph)
+    with counters.span("graph.build"):
+        graph = construct_graph(ref_path, sv_vcf, padded.to_string(), is_sv_graph=True, use_index=True)
+    with counters.span("index.build"):
+        index = index_graph(graph)
 
     result = call_pool(
         graph,
@@ -170,20 +181,22 @@ def genotype_sv(
     out_path = os.path.join(output_dir, "graphtyper.sv.vcf.gz")
     out_region = os.path.join(output_dir, region.to_file_string() + ".vcf.gz")
     os.makedirs(os.path.dirname(out_region), exist_ok=True)
-    vcf_merge_and_break(
-        [result.vcf],
-        out_region,
-        region.to_string(),
-        graph,
-        filter_zero_qual=True,
-        force_no_break_down=True,  # SVs are not decomposed
-    )
+    with counters.span("merge"):
+        vcf_merge_and_break(
+            [result.vcf],
+            out_region,
+            region.to_string(),
+            graph,
+            filter_zero_qual=True,
+            force_no_break_down=True,  # SVs are not decomposed
+        )
     import shutil
 
-    shutil.copyfile(out_region, out_path)
-    for ext in (".tbi", ".csi"):
-        if os.path.exists(out_region + ext):
-            shutil.copyfile(out_region + ext, out_path + ext)
+    with counters.span("write"):
+        shutil.copyfile(out_region, out_path)
+        for ext in (".tbi", ".csi"):
+            if os.path.exists(out_region + ext):
+                shutil.copyfile(out_region + ext, out_path + ext)
     return out_region
 
 
