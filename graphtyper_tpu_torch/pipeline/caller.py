@@ -372,6 +372,7 @@ def _call_pool(
     scorer_mesh=None,
     stream_spill: str | None = None,
     rep_oracle=None,
+    batch_records: int | None = None,
 ) -> PoolResult:
     """parallel_reader_genotype_only for one pool of samples, scored on
     `device`, or over the entries of `scorer_mesh` (a parallel/mesh.py
@@ -381,7 +382,9 @@ def _call_pool(
 
     stream_spill: optional per-pool spill path for cross-iteration staged
     batch reuse in the streaming caller (native_caller.py
-    run_native_call_pool_stream)."""
+    run_native_call_pool_stream). batch_records: the records of one
+    streamed batch, None for the streaming caller's own
+    (native_caller.STREAM_BATCH_RECORDS)."""
     from graphtyper_tpu_torch.config import current_options as _copts
     from graphtyper_tpu_torch.pipeline import native_caller as nc
 
@@ -430,6 +433,7 @@ def _call_pool(
                     avg_cov=sv_stream_cov,
                     stream_spill=stream_spill,
                     mesh=scorer_mesh,
+                    batch_records=batch_records or nc.STREAM_BATCH_RECORDS,
                 )
             if fast is None:
                 sv_avg_cov = None
@@ -701,6 +705,7 @@ def call_pools(
     hts_paths: list[str],
     device: torch.device | str,
     tmp_dir: str | None = None,
+    stream_budget: int | None = None,
     **kw,
 ) -> PoolResult:
     """Split the sample files into pools bounded by max_files_open
@@ -710,13 +715,19 @@ def call_pools(
     (caller.cpp:439-482). Single pool passes straight through. Each pool
     is span `call.pool`, a child of the caller's span on whichever thread
     runs it (a single pool's `call_pool` opens it on the caller's thread).
+    stream_budget: the records of one streamed batch, shared by the pools
+    that run at once (each streams batches of stream_budget // their
+    number), so that streaming memory does not grow with the split; None
+    leaves each pool the streaming caller's own batch.
     Fork of graphtyper_tpu/pipeline/caller.py:629."""
     from graphtyper_tpu_torch.config import current_options
 
     pools = split_pools(hts_paths)
+    threads = max(1, getattr(current_options(), "threads", 1))
+    if stream_budget is not None:
+        kw["batch_records"] = stream_budget // max(1, min(threads, len(pools)))
     if len(pools) <= 1:
         return call_pool(graph, index, hts_paths, device, **kw)
-    threads = max(1, getattr(current_options(), "threads", 1))
 
     import os
     import tempfile

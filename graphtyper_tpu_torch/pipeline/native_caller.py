@@ -1023,6 +1023,11 @@ def run_native_call_pool_bam(
         entry.release(lib)
 
 
+#: records a streaming pool reads into one batch (gt_stream_open), unless
+#: its caller shares a budget over several pools
+STREAM_BATCH_RECORDS = 1 << 18
+
+
 def run_native_call_pool_stream(
     graph,
     index,
@@ -1033,7 +1038,7 @@ def run_native_call_pool_stream(
     force_both: bool = False,
     hq_reads: bool = False,
     n_threads: int = 0,
-    batch_records: int = 1 << 18,
+    batch_records: int = STREAM_BATCH_RECORDS,
     avg_cov: list | None = None,
     stream_spill: str | None = None,
     mesh=None,

@@ -2,8 +2,9 @@
 CPU, on the 4-sample BAM fixture of tests/pipeline/test_sv_stream.py:
 
 - with the recorder on, one call records `job` and under it `graph.build`,
-  `index.build`, one `call.pool` (with `sv.reformat` inside it), `merge`
-  and `write`;
+  `index.build`, `call`, `merge` and `write`; under `call` one `call.pool`
+  a pool (each with its own `sv.reformat` and flushes inside it): one of
+  every sample at `--threads 1`, one a sample at `--threads 4`;
 - `sv_alleles` counts every SV allele the SV graph holds, each
   breakpoint of an insertion or a duplication apart;
 - the VCF is the same with the recorder off;
@@ -42,10 +43,12 @@ def fixture(tmp_path_factory):
     return tmp, fasta, sv_vcf, bams, f"{chrom}:1-{length}"
 
 
-def _genotype_sv(fixture, name: str, on: bool):
-    """(VCF path, spans, counters) of one `genotype_sv` call."""
+def _genotype_sv(fixture, name: str, on: bool, threads: int | None = None):
+    """(VCF path, spans, counters) of one `genotype_sv` call, at `threads`
+    where given."""
     tmp, fasta, sv_vcf, bams, region = fixture
-    config.set_options(config.DEFAULT_OPTIONS)
+    opts = config.DEFAULT_OPTIONS
+    config.set_options(opts if threads is None else replace(opts, threads=threads))
     counters.reset()
     counters.trace(on)
     try:
@@ -61,26 +64,41 @@ def traced(fixture):
     return _genotype_sv(fixture, "traced", True)
 
 
-def test_genotype_sv_records_its_stages_under_job(traced, fixture):
-    out, spans, _ = traced
+@pytest.mark.parametrize("threads", [1, 4])
+def test_genotype_sv_records_its_stages_under_job(fixture, threads):
+    _, spans, totals = _genotype_sv(fixture, f"stages{threads}", True, threads)
     names = [s.name for s in spans]
-    for name in ("job", "graph.build", "index.build", "call.pool", "sv.reformat", "merge", "write"):
+    stages = ("graph.build", "index.build", "call", "merge", "write")
+    for name in ("job",) + stages:
         assert names.count(name) == 1, (name, names)
     by = {s.name: s for s in spans}
     job = by["job"]
     assert job.parent is None and all(s.job == job.id for s in spans)
-    for name in ("graph.build", "index.build", "call.pool", "merge", "write"):
+    for name in stages:
         s = by[name]
         assert s.parent == job.id and (s.pid, s.tid) == (job.pid, job.tid)
         assert job.start_ns <= s.start_ns <= s.end_ns <= job.end_ns
     # in order, one after another
-    order = [by[n] for n in ("graph.build", "index.build", "call.pool", "merge", "write")]
+    order = [by[n] for n in stages]
     assert all(a.end_ns <= b.start_ns for a, b in zip(order, order[1:]))
-    assert by["call.pool"].n == len(fixture[3])
-    reformat = by["sv.reformat"]
-    assert reformat.parent == by["call.pool"].id and reformat.n > 0
-    # the pool's flushes sit in it too
-    assert all(s.parent == by["call.pool"].id for s in spans if s.name == "scoring.flush")
+    # one pool of every sample, or one a sample at 4 threads on 4 samples
+    n_bams = len(fixture[3])
+    pools = [s for s in spans if s.name == "call.pool"]
+    assert sorted(s.n for s in pools) == ([n_bams] if threads == 1 else [1] * n_bams)
+    assert totals["sv_pools"] == len(pools)
+    call = by["call"]
+    for pool in pools:
+        assert pool.parent == call.id and call.start_ns <= pool.start_ns <= pool.end_ns <= call.end_ns
+        # each pool's reformat and flushes sit in it, on its thread
+        inside = [s for s in spans if s.parent == pool.id]
+        assert [s.name for s in inside].count("sv.reformat") == 1, inside
+        assert any(s.name == "scoring.flush" for s in inside), inside
+        assert all((s.pid, s.tid) == (pool.pid, pool.tid) for s in inside)
+        assert all(s.n > 0 for s in inside if s.name == "sv.reformat")
+    assert names.count("sv.reformat") == len(pools)
+    assert all(s.parent in {p.id for p in pools} for s in spans if s.name == "scoring.flush")
+    if threads == 1:
+        assert (pools[0].pid, pools[0].tid) == (job.pid, job.tid)
 
 
 def test_sv_alleles_counts_each_breakpoint_allele(tmp_path):
