@@ -139,16 +139,13 @@ Phases, one line each, none of them caught:
               peak tree RSS (this process's and the workers' apart),
               reads/s, and the telemetry's device_rows, device_wall_s and
               h2d_bytes
-     benchtools  the six measurement tools of graphtyper_tpu_torch/tools,
-              each in a subprocess on cuda at a reduced size, five at a
-              time (their walls are not measurements): bench --quick at its
-              full 200 kb x 30x shape against the same on --device cpu (one
-              md5), bench_ab with the cpu, cuda and cuda-align variants on 4
-              samples x 100 kb (one md5 across variants), bench_flush at
-              262,144 rows (the card's totals equal the CPU's), bench_configs
-              1, bench_lr --kb 50, and bench_distributed on 4 samples x 50
-              kb (two ranks' VCF equal to one process's, both modes); each
-              must exit 0; one line a tool
+     benchtools  three measurement tools of graphtyper_tpu_torch/tools,
+              each in a subprocess on cuda at a reduced size, all at once
+              (their walls are not measurements): bench_flush at 262,144
+              rows (the card's totals equal the CPU's), bench_lr --kb 50,
+              and bench_distributed on 4 samples x 50 kb (two ranks' VCF
+              equal to one process's, both modes); each must exit 0; one
+              line a tool
 The SW batches come from tests/test_torch_sw_batches.py, the verdict and
 seed batches from tests/test_torch_device_align_batches.py, the HLA panel
 from tests/test_torch_subcommand_data.py. VCF md5s are taken with the
@@ -297,19 +294,13 @@ FUZZ_SEED = 1  # a 2-sample BAM cohort: the BAI, CRAM, Python-rANS and SAM legs 
 # tests/pipeline/test_population_soak.py:19-20's small recipe
 SOAK = ["--samples", "16", "--kb", "120", "--coverage", "10", "--processes", "4"]
 SOAK_TIMEOUT_S = 600
-# the six measurement tools at reduced sizes: (name, argv after
-# `python -m graphtyper_tpu_torch.tools.<tool>`, hide the card)
+# the measurement tools at reduced sizes: argv after `python -m
+# graphtyper_tpu_torch.tools.`, the tool's name first
 BENCHTOOLS = (  # the longest first
-    ("bench_distributed", ["bench_distributed", "4", "50", "--reps", "1"], False),
-    ("bench_ab", ["bench_ab", "--variants", "cpu,cuda,cuda-align", "--samples", "4", "--kb", "100", "--reps", "1",
-                  "--processes", "2"], False),
-    ("bench_configs", ["bench_configs", "1"], False),
-    ("bench cuda", ["bench", "--quick", "--reps", "1"], False),
-    ("bench cpu", ["bench", "--quick", "--reps", "1", "--device", "cpu"], True),
-    ("bench_flush", ["bench_flush", "--rows", "262144", "--samples", "50"], False),
-    ("bench_lr", ["bench_lr", "--kb", "50"], False),
+    ["bench_distributed", "4", "50", "--reps", "1"],
+    ["bench_flush", "--rows", "262144", "--samples", "50"],
+    ["bench_lr", "--kb", "50"],
 )
-BENCHTOOLS_AT_ONCE = 5
 BENCHTOOLS_TIMEOUT_S = 400
 
 
@@ -1701,57 +1692,35 @@ def soak_phase(work):
 
 
 def benchtools_phase(work):
-    """BENCHTOOLS, each in a subprocess, BENCHTOOLS_AT_ONCE at a time; each
-    must exit 0, and its md5 agree where it has one."""
+    """BENCHTOOLS, each in a subprocess, all at once; each must exit 0, and
+    its md5 agree where it has one."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def run(item):
-        name, argv, hide_card = item
-        env = dict(os.environ)
-        if hide_card:
-            env["CUDA_VISIBLE_DEVICES"] = ""
-        if argv[0] == "bench_ab":
-            argv = [*argv, "--cache", os.path.join(work, "bench_ab")]
+    def run(argv):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"graphtyper_tpu_torch.tools.{argv[0]}", *argv[1:]], cwd=HERE,
-                              capture_output=True, text=True, env=env, timeout=BENCHTOOLS_TIMEOUT_S)
+                              capture_output=True, text=True, timeout=BENCHTOOLS_TIMEOUT_S)
         if proc.returncode != 0:
-            raise RuntimeError(f"benchtools: {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-        return name, time.perf_counter() - t0, proc.stdout.strip().splitlines()
+            raise RuntimeError(f"benchtools: {argv[0]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        return argv[0], time.perf_counter() - t0, proc.stdout.strip().splitlines()
 
-    with ThreadPoolExecutor(BENCHTOOLS_AT_ONCE) as ex:
+    with ThreadPoolExecutor(len(BENCHTOOLS)) as ex:
         done = {name: (wall, lines) for name, wall, lines in ex.map(run, BENCHTOOLS)}
 
-    def last(name, prefix=""):
-        return json.loads(done[name][1][-1][len(prefix):])
+    def last(name):
+        return json.loads(done[name][1][-1])
 
-    card, host = last("bench cuda"), last("bench cpu")
-    if card["md5"] != host["md5"] or card["n_records"] <= 0:
-        raise AssertionError(f"benchtools: bench --quick on cuda {card} against --device cpu {host}")
-    ab = last("bench_ab", "GT_AB_SUMMARY ")
-    if not ab["outputs_identical"] or set(ab["variants"]) != {"cpu", "cuda", "cuda-align"}:
-        raise AssertionError(f"benchtools: bench_ab {ab}")
-    if ab["variants"]["cuda-align"]["align_rows"] <= 0:
-        raise AssertionError(f"benchtools: bench_ab's cuda-align variant ran no verdicts: {ab}")
     dist = last("bench_distributed")
     for mode in ("sample_sharded", "region_sharded"):
         if dist[mode]["md5_single"] != dist[mode]["md5_two_host"]:
             raise AssertionError(f"benchtools: bench_distributed {mode} {dist}")
     flush = last("bench_flush")
-    cfg1 = last("bench_configs")
     lr = dict(kv.split("=") for kv in done["bench_lr"][1][-1].split())
     lines = {
-        "bench": f"--quick 200 kb x 30x: {card['n_reads']} reads in {card['wall_s']:.3f} s on cuda,"
-                 f" {host['wall_s']:.3f} s on cpu; {card['n_records']} records, md5 {card['md5']} == --device cpu",
-        "bench_ab": f"cpu,cuda,cuda-align on 4 x 100 kb: median walls "
-                    f"{json.dumps({v: round(r['median_wall_s'], 3) for v, r in ab['variants'].items()})} s,"
-                    f" align rows {ab['variants']['cuda-align']['align_rows']}; one md5 {ab['md5'][0]}",
         "bench_flush": f"{flush['rows']} rows x {flush['samples']} samples: steady {flush['device_ms_steady']:.3f}"
                        f" ms, first {flush['device_ms_first']:.3f} ms, compute {flush['device_compute_ms']:.3f} ms,"
                        f" cpu {flush['host_ms']:.3f} ms, {flush['cuda_kernels_per_flush']} CUDA kernels; totals"
                        f" equal to the CPU's",
-        "bench_configs": f"config 1 median {cfg1['wall_s_median']:.3f} s, cold CLI process"
-                         f" {cfg1['cold_process_wall_s_median']:.3f} s",
         "bench_lr": f"--kb 50: {lr['records']} records, {lr['snps']} SNPs, {lr['wall']} (host only)",
         "bench_distributed": f"4 x 50 kb: sample-sharded t1 {dist['t1_s']:.3f} s, t2 {dist['t2_s']:.3f} s;"
                              f" region-sharded t1 {dist['region_sharded']['t1_single_host_s']:.3f} s, t2"
@@ -1759,8 +1728,7 @@ def benchtools_phase(work):
                              f" ({dist['sample_sharded']['md5_single']})",
     }
     for tool, text in lines.items():
-        walls = ", ".join(f"{n} {w:.3f} s" for n, (w, _) in done.items() if n.split()[0] == tool)
-        print(f"benchtools: {tool}: {text}; wall {walls}", flush=True)
+        print(f"benchtools: {tool}: {text}; wall {done[tool][0]:.3f} s", flush=True)
     return done
 
 

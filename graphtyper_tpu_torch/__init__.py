@@ -2,28 +2,26 @@
 
 The port stands alone: it imports nothing of `graphtyper_tpu`. Its
 backend-free host layer (io/, graph/, index/, models/, most of typer/ and
-utils/) is a copy of the JAX package's, with only the import lines
-rewritten. It builds the C++ engine itself from the repository's
-native/*.cpp into kernel_build/ (io/native.py). What touches a device is its
-own: ops/, the seam modules of typer/ and pipeline/ that call them, and the
-hand-written CUDA kernels under csrc/. It never imports jax.
+utils/) is a copy of the JAX package's with the import lines rewritten.
+Where a copy differs in more, the difference is the port's own: the C++
+engine is required (io/native.py `get_lib` builds and loads it or raises,
+so no caller checks for it), a few modules bump the port's counters, and
+the forks that call the device layer say so in their docstrings
+(typer/discovery, typer/native_discovery, typer/scoring). The port builds
+the engine itself from the repository's native/*.cpp into kernel_build/.
+What touches a device is its own: ops/, the seam modules of typer/ and
+pipeline/ that call them, and the hand-written CUDA kernels under csrc/.
+It never imports jax.
 
 Entry points:
     python -m graphtyper_tpu_torch.cli <subcommand> ...   (all 15 of the JAX
         package's CLI; genotype, genotype_sv, genotype_camou, genotype_hla,
         discover and call run on --device, cuda by default)
-    python -m graphtyper_tpu_torch.tools.bench_sw [--row|--rot]
-    python -m graphtyper_tpu_torch.tools.bench_sv [--device cpu]
-    python -m graphtyper_tpu_torch.tools.fuzz_diff [--device cuda|cpu] [n_seeds] [base]
-        (every implementation path of the pipeline against the port's own run)
-    python -m graphtyper_tpu_torch.tools.soak_population [--device cuda|cpu] ...
-        (a simulated population cohort: wall, tree RSS, md5 of the records)
-    python -m graphtyper_tpu_torch.tools.stage_ledger [--device cuda|cpu] ...
-        (per-stage host walls and the device-eligible share)
-    python -m graphtyper_tpu_torch.tools.bench [--device cuda|cpu] ...
-        (the headline bench: reads/s on the 200 kb cohort and its other legs)
-    python -m graphtyper_tpu_torch.tools.bench_flush, bench_ab, bench_configs,
-        bench_lr, bench_distributed   (the JAX package's other measurement tools)
+    python3 -m benchmark.run --workload <cell> ...   (the port's measurement,
+        BENCHMARK.json's cells; GT_TRACE=path writes the spans of counters.py,
+        GT_SCORING_STATS=path a line of device rows and wall a scorer)
+    python -m graphtyper_tpu_torch.tools.<tool> ...   (kernel benchmarks, the
+        cross-path fuzzer and the cohort soak; tools/__init__.py lists them)
     graphtyper_tpu_torch.entry.entry() / dryrun_multichip(n)   (the fused
         genotype_forward step, and the pipeline with mesh-sharded scoring)
 

@@ -283,8 +283,6 @@ def _index_graph_native(graph: Graph) -> KmerIndex | None:
     from graphtyper_tpu_torch.io.native import get_lib
 
     lib = get_lib()
-    if lib is None:
-        return None
     if not getattr(lib, "_index_ready", False):
         lib.gt_index_graph.restype = ctypes.c_void_p
         lib.gt_index_graph.argtypes = (

@@ -69,26 +69,21 @@ def bgzf_block_table(path: str) -> tuple[list[int], list[int]]:
 def _scan_records_native(data: bytes, off: int):
     """(rec_off, tid, pos, ref_end) arrays via native/gt_native.cpp
     gt_bai_scan — the boundary chain is sequential, so the walk lives in C;
-    returns None (Python fallback) when the library is missing."""
+    returns None (Python fallback) when gt_bai_scan rejects a record."""
     from graphtyper_tpu_torch.io.native import get_lib
 
     lib = get_lib()
-    if lib is None:
-        return None
     import ctypes
 
     import numpy as np
 
     if not getattr(lib, "_baiscan_ready", False):
-        try:
-            lib.gt_bai_scan.restype = ctypes.c_int64
-            lib.gt_bai_scan.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib._baiscan_ready = True
-        except AttributeError:
-            return None
+        lib.gt_bai_scan.restype = ctypes.c_int64
+        lib.gt_bai_scan.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib._baiscan_ready = True
     cap = max(1, (len(data) - off) // 36 + 1)
     rec_off = np.empty(cap, dtype=np.int64)
     tid = np.empty(cap, dtype=np.int32)
@@ -409,9 +404,9 @@ def _extract_ranges_native(path: str, merged: list[tuple[int, int]]) -> bytes | 
     the threaded native BGZF inflater: one contiguous compressed span read +
     one multi-threaded inflate per range, sliced at the within-block offsets
     (the partial last block's cut point comes from its ISIZE trailer)."""
-    from graphtyper_tpu_torch.io.native import bgzf_decompress, get_lib
+    from graphtyper_tpu_torch.io.native import bgzf_decompress
 
-    if os.environ.get("GT_BAI_RANGES") == "off" or get_lib() is None:
+    if os.environ.get("GT_BAI_RANGES") == "off":
         return None
     out = bytearray()
     try:

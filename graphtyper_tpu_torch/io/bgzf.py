@@ -134,18 +134,16 @@ class BgzfReader:
 
 
 def decompress_all(path: str) -> bytes:
-    """Decompress an entire bgzf/gzip file (handles concatenated members).
-    Uses the native libdeflate path when built (native/libgt_native.so)."""
+    """Decompress an entire bgzf/gzip file (handles concatenated members):
+    the engine's libdeflate path, or zlib's member walk where the engine
+    rejects the data."""
+    from graphtyper_tpu_torch.io import native
+
     with open(path, "rb") as f:
         raw = f.read()
-    try:
-        from graphtyper_tpu_torch.io import native
-
-        out_native = native.bgzf_decompress(raw)
-        if out_native is not None:
-            return out_native
-    except Exception:
-        pass
+    out_native = native.bgzf_decompress(raw)
+    if out_native is not None:
+        return out_native
     out = []
     d = zlib.decompressobj(wbits=31)
     while raw:
@@ -160,18 +158,14 @@ def decompress_all(path: str) -> bytes:
     return b"".join(out)
 
 
-def bgzf_compress_bulk(data: bytes, level: int = -1, n_threads: int = 0) -> bytes | None:
+def bgzf_compress_bulk(data: bytes, level: int = -1, n_threads: int = 0) -> bytes:
     """Compress a whole buffer into BGZF members (64KB blocks) with the
     native threaded compressor (gt_bgzf_compress: libdeflate per block,
     std::thread fan-out — the native analog of the reference's bgzf writer
-    threads, vcf.cpp open_for_writing). Returns None when the native library
-    is unavailable (callers fall back to the streaming writer). Does NOT
-    append the EOF marker."""
+    threads, vcf.cpp open_for_writing). Does NOT append the EOF marker."""
     from graphtyper_tpu_torch.io.native import get_lib
 
     lib = get_lib()
-    if lib is None:
-        return None
     import ctypes
 
     import numpy as np
@@ -193,7 +187,7 @@ def bgzf_compress_bulk(data: bytes, level: int = -1, n_threads: int = 0) -> byte
         in_ptr, len(data), level, n_threads, out.ctypes.data_as(ctypes.c_void_p), bound
     )
     if n < 0:
-        return None
+        raise RuntimeError(f"gt_bgzf_compress returned {n} for a buffer of its own bound {bound}")
     return out[:n].tobytes()
 
 
@@ -226,8 +220,7 @@ class ThreadedBgzfWriter:
     Virtual offsets are resolved from uncompressed offsets via
     `virtual_offset_of` once the covering block has been flushed (always
     true after close) — callers record uncompressed offsets while writing
-    and translate when building the index. Falls back to the pure-Python
-    streaming writer when the native library is missing."""
+    and translate when building the index."""
 
     FLUSH_BLOCKS = 256  # compress in ~16MB batches
 
@@ -278,20 +271,6 @@ class ThreadedBgzfWriter:
         chunk = bytes(self._buf[:n_bytes])
         del self._buf[:n_bytes]
         compressed = bgzf_compress_bulk(chunk, self._level, self._threads)
-        if compressed is None:  # no native library: single-threaded fallback
-            out = bytearray()
-            for i in range(0, len(chunk), 0xFF00):
-                blk = chunk[i : i + 0xFF00]
-                c = zlib.compressobj(6 if self._level < 0 else self._level, zlib.DEFLATED, -15)
-                cdata = c.compress(blk) + c.flush()
-                bsize = len(cdata) + 26 - 1
-                out += (
-                    b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
-                    + struct.pack("<H", 6) + b"BC" + struct.pack("<H", 2) + struct.pack("<H", bsize)
-                    + cdata
-                    + struct.pack("<II", zlib.crc32(blk) & 0xFFFFFFFF, len(blk) & 0xFFFFFFFF)
-                )
-            compressed = bytes(out)
         for i_block, off in enumerate(bgzf_block_coffsets(compressed)):
             self._coffsets.append(self._compressed_total + off)
             self._block_us.append(self._flushed_u + i_block * 0xFF00)

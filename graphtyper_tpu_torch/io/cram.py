@@ -335,8 +335,6 @@ def _rans_decode_native(body: bytes, order: int, out_size: int) -> bytes | None:
     from graphtyper_tpu_torch.io.native import get_lib
 
     lib = get_lib()
-    if lib is None:
-        return None
     import ctypes
 
     if not getattr(lib, "_rans_ready", False):
@@ -438,22 +436,15 @@ def _predecode_itf8(s: ByteReader) -> bool:
     from graphtyper_tpu_torch.io.native import get_lib
 
     lib = get_lib()
-    if lib is None:
-        s._itf8_vals = False  # don't retry
-        return False
     import ctypes
 
     if not getattr(lib, "_itf8_ready", False):
-        try:
-            lib.gt_itf8_decode_all.restype = ctypes.c_int64
-            lib.gt_itf8_decode_all.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib._itf8_ready = True
-        except AttributeError:
-            s._itf8_vals = False
-            return False
+        lib.gt_itf8_decode_all.restype = ctypes.c_int64
+        lib.gt_itf8_decode_all.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib._itf8_ready = True
     data = s.data
     cap = len(data) - s.pos + 1
     if cap > 256 * 1024:

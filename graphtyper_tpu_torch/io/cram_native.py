@@ -150,10 +150,8 @@ def _marshal(ch, ext: dict):
 
 def decode_slice_native(ch, sh, ext: dict, counter: int, ref: bytes):
     """Native decode of one slice -> list[AlignedRead], or None to fall
-    back (unsupported codec / native lib missing / C++ bailed)."""
+    back (unsupported codec / C++ bailed)."""
     lib = get_lib()
-    if lib is None:
-        return None
     _setup(lib)
     m = _marshal(ch, ext)
     if m is None:
@@ -263,8 +261,6 @@ def slice_to_bam_native(ch, sh, ext: dict, counter: int, ref: bytes) -> bytes | 
     (io/bam_writer.py conventions, full tag-type fidelity), or None to fall
     back."""
     lib = get_lib()
-    if lib is None:
-        return None
     _setup(lib)
     m = _marshal(ch, ext)
     if m is None:
@@ -302,7 +298,7 @@ def cram_to_bam_bytes(
     into decompressed-BAM bytes (header + records) entirely natively — the
     bridge that lets CRAM inputs ride the native bamshrink and pooled-caller
     BAM paths with no Python record objects. Returns None to fall back
-    (lib missing, unsupported codec anywhere, multi-ref slices, or a
+    (unsupported codec anywhere, multi-ref slices, or a
     reference-based slice whose MD5 cannot be satisfied by `ref_path` — the
     object path then reports the missing reference properly instead of
     silently decoding against Ns)."""
@@ -311,8 +307,6 @@ def cram_to_bam_bytes(
 
     from graphtyper_tpu_torch.io.cram import CramFile
 
-    if get_lib() is None:
-        return None
     cf = CramFile(path, ref_path)
     rid_region = None
     if region is not None:

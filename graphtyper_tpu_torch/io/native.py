@@ -72,11 +72,10 @@ def get_lib():
     lib.gt_bgzf_decompress.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ]
-    if hasattr(lib, "gt_bgzf_decompress_mt"):
-        lib.gt_bgzf_decompress_mt.restype = ctypes.c_int64
-        lib.gt_bgzf_decompress_mt.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-        ]
+    lib.gt_bgzf_decompress_mt.restype = ctypes.c_int64
+    lib.gt_bgzf_decompress_mt.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+    ]
     lib.gt_bam_scan.restype = ctypes.c_int32
     lib.gt_bam_scan.argtypes = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.POINTER(ctypes.c_int64)] * 5
     lib.gt_bam_fill.restype = ctypes.c_int32
@@ -87,29 +86,22 @@ def get_lib():
     return lib
 
 
-def available() -> bool:
-    return get_lib() is not None
-
-
 def bgzf_decompress(raw: bytes) -> bytes | None:
     """Whole-file BGZF decompression through libdeflate; None -> fall back.
     Blocks inflate in parallel when the file is pure BGZF (the BC extra
     field gives every block's offsets up front); plain-gzip members fall
     back to the serial member walk."""
     lib = get_lib()
-    if lib is None:
-        return None
     inp = np.frombuffer(raw, dtype=np.uint8)
     size = lib.gt_bgzf_decompress(inp.ctypes.data, len(raw), None, 0)
     if size < 0:
         return None
     out = np.empty(int(size), dtype=np.uint8)
-    if hasattr(lib, "gt_bgzf_decompress_mt"):
-        got = lib.gt_bgzf_decompress_mt(inp.ctypes.data, len(raw), out.ctypes.data, int(size), 0)
-        if got == size:
-            return out.tobytes()
-        if got != -2:
-            return None
+    got = lib.gt_bgzf_decompress_mt(inp.ctypes.data, len(raw), out.ctypes.data, int(size), 0)
+    if got == size:
+        return out.tobytes()
+    if got != -2:
+        return None
     got = lib.gt_bgzf_decompress(inp.ctypes.data, len(raw), out.ctypes.data, int(size))
     if got != size:
         return None
@@ -124,8 +116,6 @@ def decode_bam_arrays(data: bytes):
     cigar_ops/cigar_lens/cigar_offsets, names/name_offsets and header_end.
     """
     lib = get_lib()
-    if lib is None:
-        return None
     buf = np.frombuffer(data, dtype=np.uint8)
     header_end = ctypes.c_int64()
     n_records = ctypes.c_int64()
@@ -175,8 +165,6 @@ def decode_bam_arrays(data: bytes):
 
 def pack_kmers_native(codes: np.ndarray):
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(codes)
     if n < 32:
         return np.empty(0, dtype=np.uint64), np.empty(0, dtype=bool)

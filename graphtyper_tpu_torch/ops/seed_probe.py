@@ -17,9 +17,6 @@ per output word, the bits joined by a ballot), or the call raises.
 
 from __future__ import annotations
 
-import os
-import sys
-import time
 from functools import lru_cache
 
 import numpy as np
@@ -191,33 +188,9 @@ class DeviceSeeder:
     def probe_bits(self, kmers, n_rows: int, nk: int) -> np.ndarray:
         """kmers = (hi, lo, valid) [S, nk] tensors on this seeder's device
         (S row-padded); returns candidate words [n_rows, PROW] uint32 on the
-        host. GT_SEED_PROFILE=1 prints the kernel's and the copy's times
-        (CUDA events on the card) to stderr."""
+        host."""
         hi, lo, valid = kmers
         if hi.shape[1] != nk:
             raise ValueError(f"probe_bits: nk {nk} but the kmer matrix has {hi.shape[1]} columns")
-        profile = os.environ.get("GT_SEED_PROFILE")
-        cuda = hi.device.type == "cuda"
-        if profile and cuda:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-        t0 = time.perf_counter()
         packed = probe_bits(hi, lo, valid, self.bitset, self.bits)
-        if profile and cuda:
-            ev[1].record()
-        t1 = time.perf_counter()
-        out = packed[:n_rows].cpu().numpy()
-        if profile:
-            if cuda:
-                ev[2].record()
-                ev[2].synchronize()
-                kernel_s = ev[0].elapsed_time(ev[1]) / 1e3
-                d2h_s = ev[1].elapsed_time(ev[2]) / 1e3
-            else:
-                kernel_s, d2h_s = t1 - t0, time.perf_counter() - t1
-            print(
-                f"[seed_probe] kernel {kernel_s:.3f}s d2h {d2h_s:.3f}s "
-                f"S={hi.shape[0]} nk={nk} bits={self.bits}",
-                file=sys.stderr,
-            )
-        return out
+        return packed[:n_rows].cpu().numpy()

@@ -198,12 +198,10 @@ def genotype_distributed(
     merges the hosts' batched pool VCFs and phasing maps and writes the
     outputs, byte-identical to a single-process `genotype`. Host 0 returns
     the output path, the other hosts None. GT_REP_SHARD=1 splits the align
-    work of each call iteration over the hosts (parallel/rep_shard.py);
-    GT_DIST_PROFILE prints each stage's wall time. Fork of
-    graphtyper_tpu/parallel/distributed.py:164."""
+    work of each call iteration over the hosts (parallel/rep_shard.py).
+    Fork of graphtyper_tpu/parallel/distributed.py:164."""
     import shutil
     import tempfile
-    import time as _time
 
     from graphtyper_tpu_torch.config import current_options
     from graphtyper_tpu_torch.graph.build import construct_graph
@@ -223,15 +221,6 @@ def genotype_distributed(
     device = torch.device(device)
     n_hosts = num_hosts()
     host = host_id()
-    _prof = bool(os.environ.get("GT_DIST_PROFILE"))
-    _t_last = _time.perf_counter()
-
-    def _mark(stage: str) -> None:
-        nonlocal _t_last
-        if _prof:
-            now = _time.perf_counter()
-            print(f"[gt_dist h{host}] {stage} {now - _t_last:.2f}s", flush=True)
-            _t_last = now
 
     bounds = np.linspace(0, len(sams), n_hosts + 1).astype(int)
     lo, hi = int(bounds[host]), int(bounds[host + 1])
@@ -260,7 +249,6 @@ def genotype_distributed(
         from graphtyper_tpu_torch.pipeline.bamshrink import run_bamshrink
 
         my_sams = run_bamshrink(my_sams, padded, tmp, my_cov, current_options())
-    _mark("bamshrink")
 
     # global path list: only owned entries are real paths on this host
     global_paths = [""] * len(sams)
@@ -273,7 +261,6 @@ def genotype_distributed(
     sites_vcf = streamlined_discovery(
         global_paths, ref_path, padded.to_string(), sample_names, device, dist=dist_hooks
     )
-    _mark("discovery")
     it1_final = os.path.join(tmp, "it1_final.vcf.gz")
     sites_vcf.write(it1_final, contigs, abs_pos, filter_zero_qual=False, is_dropping_genotypes=True)
 
@@ -341,7 +328,6 @@ def genotype_distributed(
         # seed filter carries over additively (the donor chain of genotype())
         index = index_graph(graph, seed_filter_donor=prev_index)
         prev_index = index
-        _mark(f"graph_index_it{i}")
         # rep-sharded align exchange (GT_REP_SHARD=1, parallel/rep_shard.py):
         # hosts split the cohort's deduplicated oriented-sequence space
         rep_oracle = None
@@ -359,7 +345,6 @@ def genotype_distributed(
             rep_oracle = rep_shard.build_oracle(
                 graph, index, my_seqs, _allgather_bytes, n_hosts, host, union_key=union_key,
             )
-            _mark(f"rep_exchange_it{i}")
         result = call_pools(
             graph, index, my_sams, device,
             region=padded,
@@ -369,24 +354,19 @@ def genotype_distributed(
             ref_path=ref_path,
             rep_oracle=rep_oracle,
         )
-        _mark(f"call_it{i}")
         if not is_last:
             merged_vcf, merged_ph = gather_stats_reduce(result)
-            _mark(f"gather_stats_it{i}")
             next_vcf = os.path.join(tmp, f"it{i}_final.vcf.gz")
             vcf_merge_and_filter([merged_vcf], next_vcf, merged_ph, graph)
-            _mark(f"merge_filter_it{i}")
             prev_vcf = next_vcf
             continue
         merged_vcf, merged_ph = gather_merge(result)
-        _mark(f"gather_merge_it{i}")
         if host == 0:
             # only host 0 emits output: the final merge/decompose is sink work
             vcf_merge_and_break(
                 [merged_vcf], out_vcf_path, region.to_string(), graph,
                 filter_zero_qual=output_all_variants,
             )
-            _mark("final_merge_break")
 
     dst = None
     if host == 0:

@@ -205,19 +205,8 @@ def build_oracle(graph, index, my_mat: np.ndarray, allgather_bytes,
     crosses the wire. The local seq set and digests are iteration-
     invariant (reads don't change); pass union_key to reuse them."""
     import os
-    import time
 
     from graphtyper_tpu_torch.typer.native_align import NativeAligner
-
-    _prof = bool(os.environ.get("GT_DIST_PROFILE"))
-    t0 = time.perf_counter()
-
-    def mark(stage):
-        nonlocal t0
-        if _prof:
-            now = time.perf_counter()
-            print(f"[rep_shard h{host}] {stage} {now - t0:.2f}s", flush=True)
-            t0 = now
 
     cached = _LOCAL_CACHE.get(union_key) if union_key is not None else None
     if cached is None:
@@ -231,7 +220,6 @@ def build_oracle(graph, index, my_mat: np.ndarray, allgather_bytes,
         keep = np.nonzero(owner == host)[0]
         mine_seqs = [seqs[i] for i in keep]
         mine_digests = np.ascontiguousarray(digests[keep])
-        mark(f"digest+partition (local={len(seqs)}, mine={len(mine_seqs)})")
         if union_key is not None:
             _LOCAL_CACHE.clear()
             _LOCAL_CACHE[union_key] = (mine_seqs, mine_digests)
@@ -245,14 +233,12 @@ def build_oracle(graph, index, my_mat: np.ndarray, allgather_bytes,
             n_threads = os.cpu_count() or 1
     aligner = NativeAligner(graph, index)
     table_mine = aligner.align_rows_raw(mine_seqs, n_threads=n_threads)
-    mark(f"align_partition (n={len(mine_seqs)})")
     parts = [
         pickle.loads(b)
         for b in allgather_bytes(
             pickle.dumps((mine_digests, table_mine), protocol=pickle.HIGHEST_PROTOCOL)
         )
     ]
-    mark("gather_tables")
     merged = _concat_tables([t for _d, t in parts])
     # each digest has exactly one owner and only the owner aligns it, so
     # digests are unique across parts by construction

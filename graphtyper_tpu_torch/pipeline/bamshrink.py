@@ -301,8 +301,6 @@ def _bamshrink_native(
     from graphtyper_tpu_torch.io.native import get_lib
 
     lib = get_lib()
-    if lib is None:
-        return None
     import ctypes
     import struct
 

@@ -398,79 +398,78 @@ def _call_pool(
         and not getattr(_copts(), "primer_bedpe", "")
         and region is not None
     ):
-        if nc.available():
-            fast = None
-            stream_mode = getattr(_copts(), "streaming_caller", "auto")
-            if rep_oracle is not None:
-                # rep-sharded mode imports external results through the prep's
-                # row numbering, which the streaming caller does not have
-                stream_mode = "off"
-            use_stream = stream_mode == "on"
-            if stream_mode == "auto" and all(p.endswith(".bam") for p in hts_paths):
-                # big pools stream (bounded RSS); small pools stay in-memory
-                # (lower latency)
-                import os as _os
+        fast = None
+        stream_mode = getattr(_copts(), "streaming_caller", "auto")
+        if rep_oracle is not None:
+            # rep-sharded mode imports external results through the prep's
+            # row numbering, which the streaming caller does not have
+            stream_mode = "off"
+        use_stream = stream_mode == "on"
+        if stream_mode == "auto" and all(p.endswith(".bam") for p in hts_paths):
+            # big pools stream (bounded RSS); small pools stay in-memory
+            # (lower latency)
+            import os as _os
 
-                total = sum(_os.path.getsize(p) for p in hts_paths)
-                use_stream = len(hts_paths) >= 12 or total > 256 * 1024 * 1024
-            if use_stream:
-                sv_stream_cov = None
-                if (
-                    graph.is_sv_graph
-                    and not no_filter_on_coverage
-                    and avg_cov_by_readlen is not None
-                ):
-                    sv_stream_cov = avg_cov_by_readlen
-                fast = nc.run_native_call_pool_stream(
-                    graph,
-                    index,
-                    hts_paths,
-                    region,
-                    device,
-                    sam_flag_filter=SAM_FLAG_FILTER,
-                    force_both=force_align_both_orientations,
-                    hq_reads=getattr(_copts(), "hq_reads", False),
-                    avg_cov=sv_stream_cov,
-                    stream_spill=stream_spill,
-                    mesh=scorer_mesh,
-                    batch_records=batch_records or nc.STREAM_BATCH_RECORDS,
-                )
-            if fast is None:
-                sv_avg_cov = None
-                if (
-                    graph.is_sv_graph
-                    and not no_filter_on_coverage
-                    and avg_cov_by_readlen is not None
-                ):
-                    sv_avg_cov = avg_cov_by_readlen
-                fast = nc.run_native_call_pool_bam(
-                    graph,
-                    index,
-                    hts_paths,
-                    region,
-                    device,
-                    sam_flag_filter=SAM_FLAG_FILTER,
-                    force_both=force_align_both_orientations,
-                    hq_reads=getattr(_copts(), "hq_reads", False),
-                    avg_cov=sv_avg_cov,
-                    ref_path=ref_path,
-                    mesh=scorer_mesh,
-                    rep_oracle=rep_oracle,
-                )
-            if fast is not None:
-                sample_names, scorer, num_records, num_duplicated, fast_depth = fast
-                scorer.finalize()
-                ph = compute_ph_map(scorer) if is_writing_hap else {}
-                return _build_pool_result(
-                    graph,
-                    scorer,
-                    sample_names,
-                    ph,
-                    fast_depth,
-                    is_writing_calls_vcf,
-                    num_records,
-                    num_duplicated,
-                )
+            total = sum(_os.path.getsize(p) for p in hts_paths)
+            use_stream = len(hts_paths) >= 12 or total > 256 * 1024 * 1024
+        if use_stream:
+            sv_stream_cov = None
+            if (
+                graph.is_sv_graph
+                and not no_filter_on_coverage
+                and avg_cov_by_readlen is not None
+            ):
+                sv_stream_cov = avg_cov_by_readlen
+            fast = nc.run_native_call_pool_stream(
+                graph,
+                index,
+                hts_paths,
+                region,
+                device,
+                sam_flag_filter=SAM_FLAG_FILTER,
+                force_both=force_align_both_orientations,
+                hq_reads=getattr(_copts(), "hq_reads", False),
+                avg_cov=sv_stream_cov,
+                stream_spill=stream_spill,
+                mesh=scorer_mesh,
+                batch_records=batch_records or nc.STREAM_BATCH_RECORDS,
+            )
+        if fast is None:
+            sv_avg_cov = None
+            if (
+                graph.is_sv_graph
+                and not no_filter_on_coverage
+                and avg_cov_by_readlen is not None
+            ):
+                sv_avg_cov = avg_cov_by_readlen
+            fast = nc.run_native_call_pool_bam(
+                graph,
+                index,
+                hts_paths,
+                region,
+                device,
+                sam_flag_filter=SAM_FLAG_FILTER,
+                force_both=force_align_both_orientations,
+                hq_reads=getattr(_copts(), "hq_reads", False),
+                avg_cov=sv_avg_cov,
+                ref_path=ref_path,
+                mesh=scorer_mesh,
+                rep_oracle=rep_oracle,
+            )
+        if fast is not None:
+            sample_names, scorer, num_records, num_duplicated, fast_depth = fast
+            scorer.finalize()
+            ph = compute_ph_map(scorer) if is_writing_hap else {}
+            return _build_pool_result(
+                graph,
+                scorer,
+                sample_names,
+                ph,
+                fast_depth,
+                is_writing_calls_vcf,
+                num_records,
+                num_duplicated,
+            )
 
     sample_names, pooled = read_pool_records(
         hts_paths, region, ref_path=ref_path, position_filter=graph.is_sv_graph
@@ -532,7 +531,7 @@ def _call_pool(
     # same loop with the is_good_sv_read gate, coverage bins, leftover-mate
     # resolution and ReferenceDepth accumulated natively (gt_call_pool_sv).
     if current_options().native_caller != "off" and stats is None and primers is None:
-        if nc.available() and not (
+        if not (
             # avg_cov is per input FILE; with merged multi-sample files the
             # sample count can exceed it — keep the Python loop's loud
             # IndexError instead of native out-of-bounds reads
@@ -594,26 +593,25 @@ def _call_pool(
     if current_options().native_aligner != "off":
         from graphtyper_tpu_torch.typer import native_align
 
-        if native_align.available():
-            reps = []
-            rep_prev_key = None
-            sim_bins: list[dict[int, int]] = [dict() for _ in sample_names]
-            for read, _si, _ri in pooled:
-                if read.flag & SAM_FLAG_FILTER:
-                    continue
-                if is_sv and not is_good_sv_read(read):
-                    continue
-                key = (read.pos, read.seq)
-                if rep_prev_key is not None and key == rep_prev_key:
-                    if coverage_filter:
-                        _bin_update(sim_bins, read, _si)
-                    continue
-                if coverage_filter and not _bin_update(sim_bins, read, _si):
-                    continue  # skipped new key: rep_prev_key stays, like prev_key
-                reps.append(read)
-                rep_prev_key = key
-            aligner = native_align.NativeAligner(graph, index)
-            aligned_iter = iter(aligner.align_batch(reps, force_align_both_orientations))
+        reps = []
+        rep_prev_key = None
+        sim_bins: list[dict[int, int]] = [dict() for _ in sample_names]
+        for read, _si, _ri in pooled:
+            if read.flag & SAM_FLAG_FILTER:
+                continue
+            if is_sv and not is_good_sv_read(read):
+                continue
+            key = (read.pos, read.seq)
+            if rep_prev_key is not None and key == rep_prev_key:
+                if coverage_filter:
+                    _bin_update(sim_bins, read, _si)
+                continue
+            if coverage_filter and not _bin_update(sim_bins, read, _si):
+                continue  # skipped new key: rep_prev_key stays, like prev_key
+            reps.append(read)
+            rep_prev_key = key
+        aligner = native_align.NativeAligner(graph, index)
+        aligned_iter = iter(aligner.align_batch(reps, force_align_both_orientations))
 
     def process(read: AlignedRead, sample_i: int, rg_i: int, genos) -> None:
         map_gpaths = maps[rg_i]

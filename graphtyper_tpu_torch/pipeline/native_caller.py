@@ -142,10 +142,6 @@ def _setup_lib(lib) -> None:
     lib._call_ready = True
 
 
-def available() -> bool:
-    return get_lib() is not None
-
-
 # decompressed-BAM bytes cache (the caller re-reads the shrunk pool files
 # once per iteration; objects are never built on this path). Byte-bounded:
 # cohort pools hold many small shrunk files, whole-file inputs few big ones.
@@ -841,11 +837,8 @@ def _setup_stream(lib) -> None:
     )
     lib.gt_stream_free.restype = None
     lib.gt_stream_free.argtypes = [ctypes.c_void_p]
-    try:  # older builds predate the staged-batch spill
-        lib.gt_stream_spill.restype = ctypes.c_int32
-        lib.gt_stream_spill.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32]
-    except AttributeError:
-        pass
+    lib.gt_stream_spill.restype = ctypes.c_int32
+    lib.gt_stream_spill.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32]
     lib._stream_ready = True
 
 
@@ -920,8 +913,6 @@ def run_native_call_pool_bam(
     if region is None or not all(p.endswith((".bam", ".cram")) for p in hts_paths):
         return None
     lib = get_lib()
-    if lib is None:
-        return None
     _setup_lib(lib)
 
     from graphtyper_tpu_torch.config import current_options
@@ -1055,8 +1046,6 @@ def run_native_call_pool_stream(
     if region is None or not all(p.endswith(".bam") for p in hts_paths):
         return None
     lib = get_lib()
-    if lib is None:
-        return None
     _setup_lib(lib)
     _setup_stream(lib)
 
@@ -1114,7 +1103,7 @@ def run_native_call_pool_stream(
     if not handle:
         return None
 
-    if stream_spill and hasattr(lib, "gt_stream_spill"):
+    if stream_spill:
         import json as _json
         import os as _os
 

@@ -836,12 +836,9 @@ def streamlined_discovery(
     per_file_reads: list[list[AlignedRead]] = []
 
     from graphtyper_tpu_torch.config import current_options
+    from graphtyper_tpu_torch.typer import native_discovery
 
     use_native_fp = current_options().native_caller != "off"
-    if use_native_fp:
-        from graphtyper_tpu_torch.typer import native_discovery
-
-        use_native_fp = native_discovery.available()
 
     per_file_reads = [None] * len(hts_paths)
     opts_now = current_options()

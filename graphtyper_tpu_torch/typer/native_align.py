@@ -47,11 +47,8 @@ def _setup_lib(lib) -> None:
     lib.gt_seed_filter_add.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
     lib.gt_seed_filter_free.restype = None
     lib.gt_seed_filter_free.argtypes = [ctypes.c_void_p]
-    try:  # older builds of the .so predate the bucket accelerator
-        lib.gt_seed_filter_bucket.restype = None
-        lib.gt_seed_filter_bucket.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-    except AttributeError:
-        pass
+    lib.gt_seed_filter_bucket.restype = None
+    lib.gt_seed_filter_bucket.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
     lib._align_ready = True
 
 
@@ -78,9 +75,9 @@ def seed_filter_prefetch(index, n_threads: int = 0) -> None:
     """Start building the index's seed filter on a background thread (the
     ~100ms Hamming-neighborhood build overlaps graph finalize / pool prep);
     seed_filter_handle() joins it via the build lock."""
-    lib = get_lib()
-    if lib is None or getattr(index, "_seed_filter", None) is not None:
+    if getattr(index, "_seed_filter", None) is not None:
         return
+    lib = get_lib()
     import threading
 
     t = threading.Thread(
@@ -132,11 +129,8 @@ class _RefFilterDonor:
 
 def prebuild_reference_seed_filter(ref_codes: np.ndarray):
     """Kick off the reference-kmer filter build in the background; returns a
-    donor consumable by index_graph(seed_filter_donor=...), or None when the
-    native library is unavailable."""
+    donor consumable by index_graph(seed_filter_donor=...)."""
     lib = get_lib()
-    if lib is None:
-        return None
     import threading
 
     donor = _RefFilterDonor()
@@ -193,14 +187,9 @@ def _adopt_donor_filter(index, keys: np.ndarray, lib):
         )
     # the bitsets are superset-safe under adoption, but the prefix-bucket
     # accelerator is exact — re-attach it to THIS index's key array
-    if hasattr(lib, "gt_seed_filter_bucket"):
-        lib.gt_seed_filter_bucket(dsf.handle, keys.ctypes.data_as(ctypes.c_void_p), len(keys))
+    lib.gt_seed_filter_bucket(dsf.handle, keys.ctypes.data_as(ctypes.c_void_p), len(keys))
     donor._seed_filter = None  # transfer ownership (single free via wrapper)
     return dsf
-
-
-def available() -> bool:
-    return get_lib() is not None
 
 
 class NativeAligner:

@@ -38,16 +38,10 @@ def _setup(lib) -> None:
     lib._fp_ready = True
 
 
-def available() -> bool:
-    return get_lib() is not None
-
-
 def run_first_pass_native(bam_bytes: bytes, target_ref: int, region_begin: int, reference: bytes, opts):
     """Returns (buckets, sample_haplotypes) like discovery.run_first_pass, or
     None to fall back."""
     lib = get_lib()
-    if lib is None:
-        return None
     _setup(lib)
     from graphtyper_tpu_torch.typer.discovery import BUCKET_SIZE, BucketFirstPass, HaplotypeInfo
     from graphtyper_tpu_torch.typer.events import Event, EventSupport
@@ -196,8 +190,6 @@ def read_reads_into_buckets_native(
     EventSupport state is identical; buckets outside every window keep
     empty read lists that realign_to_indels never touches."""
     lib = get_lib()
-    if lib is None:
-        return None
     _setup_sp(lib)
     from graphtyper_tpu_torch.typer.discovery import (
         BUCKET_SIZE,
@@ -391,8 +383,6 @@ def _setup_fx(lib) -> None:
 def fp_extract(bam_bytes: bytes, target_ref: int, region_begin: int, reference: bytes):
     """Run the native extraction walk; returns a dict of flat arrays or None."""
     lib = get_lib()
-    if lib is None:
-        return None
     _setup_fx(lib)
     data = np.frombuffer(bam_bytes, dtype=np.uint8)
     ref = np.frombuffer(reference, dtype=np.uint8)
@@ -447,8 +437,6 @@ def fp_gates(extract: dict, counters: np.ndarray, region_begin: int, reference: 
     """Run the native gates + phase analysis over aggregated counters;
     returns (buckets, sample_haplotypes) like run_first_pass_native."""
     lib = get_lib()
-    if lib is None:
-        return None
     _setup_fx(lib)
     from graphtyper_tpu_torch.ops.discovery_pileup import count_pairs
 

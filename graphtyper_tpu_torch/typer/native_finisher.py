@@ -60,9 +60,7 @@ def available() -> bool:
         return False
     # modes with special FILTER/GQ semantics stay on the Python path
     # (vcf.cpp:860 "." FILTER; variant.cpp:334 LR GQ bump)
-    if o.ploidy > 2 or o.is_segment_calling or o.is_lr_calling:
-        return False
-    return get_lib() is not None
+    return not (o.ploidy > 2 or o.is_segment_calling or o.is_lr_calling)
 
 
 def _eligible(var, n_samples: int) -> bool:
@@ -87,23 +85,18 @@ def _eligible(var, n_samples: int) -> bool:
     return True
 
 
-def finish_variants(variants: list, n_samples: int, want_strings: bool = True) -> bool:
+def finish_variants(variants: list, n_samples: int, want_strings: bool = True) -> None:
     """Run the native finisher over every eligible variant in `variants`.
 
     Eligible variants get `_fin = (good, qual, vartype, info, filter, fmt)`
     (strings empty when want_strings=False) attached; ineligible ones are
-    left untouched (callers fall back to Variant.generate_infos). Returns
-    False when the native library is unavailable (nothing attached)."""
+    left untouched (callers fall back to Variant.generate_infos)."""
     lib = get_lib()
-    if lib is None:
-        return False
     _setup(lib)
 
     todo = [v for v in variants if _eligible(v, n_samples)]
-    if not todo:
-        return True
-    m = _marshal(todo, n_samples)
-    return _fetch_strings(lib, todo, n_samples, m, want_strings)
+    if todo:
+        _fetch_strings(lib, todo, n_samples, _marshal(todo, n_samples), want_strings)
 
 
 def _marshal(todo: list, S: int) -> dict:
@@ -223,7 +216,7 @@ def _invoke(lib, m: dict, want_strings: bool):
     return handle, n_info, n_fmt, n_filter
 
 
-def _fetch_strings(lib, todo: list, S: int, m: dict, want_strings: bool) -> bool:
+def _fetch_strings(lib, todo: list, S: int, m: dict, want_strings: bool) -> None:
     handle, n_info, n_fmt, n_filter = _invoke(lib, m, want_strings)
     V = m["V"]
     A = m["A"]
@@ -268,7 +261,6 @@ def _fetch_strings(lib, todo: list, S: int, m: dict, want_strings: bool) -> bool
             fmt_b[fmt_off[i] : fmt_off[i + 1]].decode(),
         )
         gi += na
-    return True
 
 
 def scan_variants(variants: list, n_samples: int) -> list:
@@ -279,8 +271,6 @@ def scan_variants(variants: list, n_samples: int) -> list:
     on those). Parity: tests/typer/test_native_finisher.py
     test_scan_writeback."""
     lib = get_lib()
-    if lib is None:
-        return list(variants)
     _setup(lib)
     todo, rest = [], []
     for v in variants:

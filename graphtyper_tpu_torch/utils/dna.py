@@ -112,14 +112,9 @@ def pack_kmers(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
     if n <= 0:
         return np.empty(0, dtype=np.uint64), np.empty(0, dtype=bool)
     if k == 32:
-        try:
-            from graphtyper_tpu_torch.io import native
+        from graphtyper_tpu_torch.io import native
 
-            out = native.pack_kmers_native(codes)
-            if out is not None:
-                return out
-        except Exception:
-            pass
+        return native.pack_kmers_native(codes)
     ok = codes < 4
     # sliding validity via cumulative sum of invalid flags
     bad = (~ok).astype(np.int32)

@@ -15,12 +15,10 @@ import numpy as np
 
 def _nw_edits_native(ref: bytes, alt: bytes):
     """C++ twin of the numpy DP below (gt_sw.cpp gt_nw_edits, same tie
-    rules); returns None to fall back (lib missing or size cap)."""
+    rules); returns None to fall back (size cap)."""
     from graphtyper_tpu_torch.io.native import get_lib
 
     lib = get_lib()
-    if lib is None:
-        return None
     import ctypes
 
     if not getattr(lib, "_nw_ready", False):

@@ -1,22 +1,15 @@
-"""The port's six measurement tools (graphtyper_tpu_torch/tools/bench,
-bench_flush, bench_ab, bench_configs, bench_lr, bench_distributed) on the
-CPU device, each held to its JAX original at a small size:
+"""The port's measurement tools (graphtyper_tpu_torch/tools/) on the CPU
+device; bench_flush, bench_lr and bench_distributed each held to its JAX
+original at a small size:
 
 - bench_flush: `synth_rows` draws the JAX tool's rows; the port's
   `apply_tier` on the CPU equals the JAX package's `_apply_rows_numpy`;
 - bench_lr: `sim_lr` writes the JAX tool's FASTA and BAM records, and the
   port's `genotype_lr` writes the JAX package's VCF;
-- bench: the whole tool at 20 kb × 10x on `--device cpu`: its records md5
-  equals the JAX package's `genotype_regions` on the same SimConfig, its
-  last line has every key of the JAX line but the two tunnel keys, and
-  all-reads-over-all-walls beside the best-of figure;
-- bench_ab: the cpu variant's md5 equals the JAX package's run;
-- bench_configs: config 1 writes the JAX package's VCF, in process and from
-  a cold CLI process;
 - bench_distributed: two gloo ranks write the single process's VCF, in
   both modes, each leg run once (the warm-up and the repeats reuse it);
 - each tool with a device asks for cuda by default and raises without a
-  card; none imports jax or the JAX package or catches an exception.
+  card; no tool imports jax or the JAX package or catches an exception.
 
 Every compared value is an integer, a string or bytes: the tolerance is 0.
 The JAX tools' output keys are read from their sources."""
@@ -26,33 +19,22 @@ import gzip
 import hashlib
 import importlib.util
 import json
-import os
 import pathlib
 import re
-import subprocess
-import sys
-from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
 
-from graphtyper_tpu import config as ref_config
 from graphtyper_tpu.ops import site_scoring as ref_ss
-from graphtyper_tpu.pipeline.genotype import genotype_only_with_a_vcf as ref_genotype_only_with_a_vcf
-from graphtyper_tpu.pipeline.genotype import genotype_regions as ref_genotype_regions
 from graphtyper_tpu.pipeline.genotype_lr import genotype_lr as ref_genotype_lr
-from graphtyper_tpu.utils.simulate import SimConfig, simulate_cohort
-from graphtyper_tpu_torch import config
 from graphtyper_tpu_torch.io.bam import read_alignments
 from graphtyper_tpu_torch.ops.site_scoring import obs_matrix
 from graphtyper_tpu_torch.pipeline.genotype_lr import genotype_lr
-from graphtyper_tpu_torch.tools import bench, bench_ab, bench_configs, bench_distributed, bench_flush, bench_lr
-from graphtyper_tpu_torch.tools.common import records_md5
+from graphtyper_tpu_torch.tools import bench_align, bench_distributed, bench_flush, bench_lr, bench_sv, bench_sw
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-TOOLS = ("bench", "bench_flush", "bench_ab", "bench_configs", "bench_lr", "bench_distributed")
-TUNNEL_KEYS = {"tunnel_healthy", "tunnel_probe_log"}
+TOOLS = ("bench_flush", "bench_lr", "bench_distributed", "bench_sw", "bench_sv", "bench_align", "bench_scoring")
 
 
 def _jax_tool(rel: str):
@@ -95,20 +77,6 @@ def _md5_vcfs(paths) -> str:
                 if not line.startswith(b"##fileDate"):
                     h.update(line)
     return h.hexdigest()
-
-
-def _reset():
-    for c in (config, ref_config):
-        c.set_options(c.DEFAULT_OPTIONS)
-
-
-@pytest.fixture
-def jax_threads1():
-    """The JAX package at threads=1 (its prepared-pool cache frees pools in
-    use at more threads), both packages' options reset after."""
-    ref_config.set_options(replace(ref_config.DEFAULT_OPTIONS, threads=1))
-    yield
-    _reset()
 
 
 # ---- bench_flush -------------------------------------------------------------
@@ -183,69 +151,6 @@ def test_bench_lr_takes_no_device():
         bench_lr.main(["--device", "cpu"])
 
 
-# ---- bench -------------------------------------------------------------------
-
-BENCH_SMALL = ["--kb", "20", "--coverage", "10", "--reps", "1", "--processes", "2", "--mb-kb", "20",
-               "--indep-kb", "20", "--sv-kb", "40", "--forward", "256,160,64,8"]
-
-
-def test_bench_cpu_run_matches_jax(tmp_path, jax_threads1):
-    p = subprocess.run([sys.executable, "-m", "graphtyper_tpu_torch.tools.bench", "--device", "cpu", *BENCH_SMALL],
-                       cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert p.returncode == 0, p.stderr[-4000:]
-    line = json.loads(p.stdout.strip().splitlines()[-1])
-    assert (_dict_keys("bench.py", "metric") - {f"detail.{k}" for k in TUNNEL_KEYS}) <= _flat_keys(line)
-    d = line["detail"]
-    assert not TUNNEL_KEYS & set(d)
-    assert d["backend"] == "cpu" and d["sw_gcells_per_sec"] is None
-    assert d["forced_device_md5_match"] is True and d["forced_device_rows"] > 0
-    assert d["n_records"] > 0 and d["indep_n_records"] > 0 and d["sv_n_records"] > 0
-    assert d["launches_200kb"].get("sw_plain", 0) > 0
-    assert len(d["walls_s_200kb_30x"]) == 1 and d["wall_s_200kb_30x"] == d["walls_s_200kb_30x"][0]
-    assert d["reads_per_sec_all_reps"] == d["n_reads"] / d["wall_s_200kb_30x"] == line["value"]
-
-    cfg = SimConfig(region_length=20_000, coverage=10.0, seed=1, out_format="bam")
-    sim = simulate_cohort(str(tmp_path / "sim"), cfg)
-    outs = ref_genotype_regions(sim.fasta, sim.sams, f"{cfg.chrom}:1-20000", str(tmp_path / "jax"))
-    assert (d["md5"], d["n_records"]) == records_md5(outs)
-    assert d["n_reads"] == sim.n_reads
-
-
-# ---- bench_ab ----------------------------------------------------------------
-
-def test_bench_ab_cpu_md5_equals_jax(tmp_path, capsys, jax_threads1):
-    cache = str(tmp_path / "cache")
-    assert bench_ab.main(["--variants", "cpu", "--samples", "2", "--kb", "20", "--reps", "1", "--cache", cache]) == 0
-    out = capsys.readouterr().out.strip().splitlines()
-    summary = json.loads(out[-1].split("GT_AB_SUMMARY ", 1)[1])
-    assert (_dict_keys("tools/bench_tpu_ab.py", "outputs_identical") - {"tunnel_probe_log"}) <= set(summary)
-    v = summary["variants"]["cpu"]
-    assert _dict_keys("tools/bench_tpu_ab.py", "walls_s") <= set(v) and v["device_rows"] > 0
-    assert summary["outputs_identical"] and summary["n_md5"] == 1
-
-    with open(os.path.join(bench_ab.cache_dir(cache, 2, 20), "meta.json")) as f:
-        meta = json.load(f)
-    outs = ref_genotype_regions(meta["fasta"], meta["sams"], "chrS:1-20000", str(tmp_path / "jax"))
-    assert summary["md5"] == [records_md5(outs)[0]]
-
-
-# ---- bench_configs -----------------------------------------------------------
-
-def test_bench_configs_config1_writes_jax_vcf(tmp_path, capsys):
-    line = bench_configs.config1(torch.device("cpu"), str(tmp_path / "port"), reps=1, cold=1)
-    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert _dict_keys("tools/bench_configs.py", "wall_s_median") <= set(printed)
-    data = REPO / "tests" / "data"
-    try:
-        ref = ref_genotype_only_with_a_vcf(str(data / "index_test.fa"), [str(data / "test.sam")],
-                                           str(data / "index_test.vcf.gz"), "chr1:1-100000", str(tmp_path / "jax"))
-    finally:
-        _reset()
-    cold = list((tmp_path / "port" / "cold0" / "chr1").glob("*.vcf.gz"))
-    assert len(cold) == 1
-    assert _md5_vcfs([line["out"]]) == _md5_vcfs([cold[0]]) == _md5_vcfs([ref])
-
-
 # ---- bench_distributed -------------------------------------------------------
 
 def _once(leg):
@@ -284,7 +189,7 @@ def test_bench_distributed_two_ranks_write_the_single_vcf(monkeypatch, capsys):
 
 # ---- every tool --------------------------------------------------------------
 
-@pytest.mark.parametrize("tool", [bench, bench_flush, bench_ab, bench_configs, bench_distributed],
+@pytest.mark.parametrize("tool", [bench_flush, bench_distributed, bench_sw, bench_sv, bench_align],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_tool_asks_for_cuda_by_default(monkeypatch, tool):
     """Without --device (or --variants) the tool asks for cuda and raises

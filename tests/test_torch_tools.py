@@ -7,22 +7,16 @@
   region units over 2 region workers, max_files_open 2 so sam_merge
   chunking and the multi-pool reduction engage) whose record md5 equals
   graphtyper_tpu's `genotype_regions` on the same cohort at threads=1 (the
-  JAX package's prepared-pool cache frees pools in use at more threads);
-- tools/stage_ledger: its JSON line has the JAX tool's keys and stages,
-  with the align stage off and on the device."""
+  JAX package's prepared-pool cache frees pools in use at more threads)."""
 
-import importlib.util
 import json
 import os
-import pathlib
 from dataclasses import replace
 
 from graphtyper_tpu import config as ref_config
 from graphtyper_tpu.pipeline import genotype as ref_genotype
 from graphtyper_tpu_torch import config
-from graphtyper_tpu_torch.tools import fuzz_diff, soak_population, stage_ledger
-
-REPO = pathlib.Path(__file__).resolve().parent.parent
+from graphtyper_tpu_torch.tools import fuzz_diff, soak_population
 
 
 def _reset():
@@ -71,28 +65,3 @@ def test_soak_reduced_recipe_matches_jax(tmp_path, capsys):
     md5, n_records = soak_population.records_md5(want)
     assert len(want) == 2 and got["n_records"] == n_records > 0 and got["md5"] == md5
     assert got["n_reads"] == meta["n_reads"] > 0 and 0 < got["peak_tree_rss_mb"] < 12000
-
-
-def test_stage_ledger_keys_match_jax():
-    spec = importlib.util.spec_from_file_location("jax_stage_ledger", REPO / "tools" / "stage_ledger.py")
-    ref_ledger = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ref_ledger)
-    _reset()
-    try:
-        want = ref_ledger.run("snp", n_samples=1, kb=20)
-        runs = {on: stage_ledger.run("snp", "cpu", n_samples=1, kb=20, device_align=on) for on in (False, True)}
-    finally:
-        _reset()
-    for on, got in runs.items():
-        assert set(want) <= set(got) and set(got) - set(want) == {"device", "telemetry", "timing"}
-        assert set(got["stages"]) == set(want["stages"])
-        for name, stage in want["stages"].items():
-            assert set(got["stages"][name]) == set(stage)
-        assert got["device"] == "cpu" and got["n_reads"] == want["n_reads"]
-        assert "asynchronous" in got["timing"]
-        assert got["telemetry"]["device_rows"] > 0 and got["stages"]["site_scoring_device"]["wall_s"] > 0
-        align = got["stages"]["align_clean_device"]
-        assert align["device_eligible"] == got["stages"]["seed_device"]["device_eligible"] == on
-        assert (align["wall_s"] > 0 and 0 < align["clean_fraction"] <= 1) == on
-        assert (got["telemetry"]["align_rows"] > 0) == on
-        json.dumps(got)
